@@ -1,10 +1,13 @@
-"""cloudsc2jax — a TPU-native CLOUDSC2 NL/TL/AD framework.
+"""cloudsc2jax — the CLOUDSC2 cloud scheme, its tangent-linear and its
+adjoint, in JAX.
 
-Brand-new JAX/XLA/Pallas re-design of the capabilities of the ECMWF
+A JAX/XLA/Pallas re-design of the capabilities of the ECMWF
 ``dwarf-p-cloudsc2-tl-ad`` mini-app: the CLOUDSC2 cloud/large-scale
 condensation scheme (nonlinear), its tangent-linear and adjoint, the
 validation harnesses (golden regression, Taylor test, adjoint symmetry
-test), the HDF5 state I/O, and distributed execution over TPU meshes.
+test), the state I/O (.npz, or HDF5 through the optional h5py), GPU
+kernels for the three sweeps, and distributed execution over device
+meshes.
 """
 
 from .constants import (

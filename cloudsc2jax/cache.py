@@ -1,14 +1,16 @@
-"""Host-fingerprinted persistent compile cache.
+"""Persistent compile cache for every entry point (CLI, bench, tools, tests).
 
-One shared helper for every entry point (CLI, bench, tools, tests) that
-enables JAX's persistent compilation cache.  The cache directory is keyed
-by a fingerprint of the host CPU and the jax/jaxlib versions: XLA:CPU
-executables encode the *compiling* machine's feature set, and loading one
-on a host with different features aborts with "Machine type used for
-XLA:CPU compilation doesn't match the machine type for execution"
-(observed when the round-3 cache met the round-4 host).  Fingerprinting
-the directory makes a host change start a fresh cache instead of
-poisoning every CPU-path run.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already uses it and this
+module sets nothing.  Otherwise the cache goes to a fixed ``.jax_cache/``
+in the checkout: the path is part of what makes a cache hit, so it must
+not move between runs.
+
+CPU runs get one more level, a subdirectory keyed by the host's CPU
+features and the jax version: XLA:CPU executables encode the compiling
+machine's feature set, and loading one on a host with other features
+aborts with "Machine type used for XLA:CPU compilation doesn't match the
+machine type for execution".  GPU executables carry no such dependence,
+so GPU runs never use the subdirectory.
 """
 
 from __future__ import annotations
@@ -41,25 +43,27 @@ def _host_fingerprint() -> str:
     return hashlib.sha256("|".join(bits).encode()).hexdigest()[:12]
 
 
-def compile_cache_dir() -> str:
-    """The host-specific persistent cache directory (honours
-    ``CLOUDSC2_CACHE_DIR`` as a verbatim override)."""
-    override = os.environ.get("CLOUDSC2_CACHE_DIR")
-    if override:
-        return override
-    return str(_REPO / ".jax_cache" / _host_fingerprint())
+def compile_cache_dir(jax_platform: str) -> str | None:
+    """The cache directory this module would set for ``jax_platform``, or
+    None when ``JAX_COMPILATION_CACHE_DIR`` already places it."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    base = _REPO / ".jax_cache"
+    if jax_platform == "cpu":
+        base = base / _host_fingerprint()
+    return str(base)
 
 
 def enable_compile_cache() -> None:
-    """Point JAX's persistent compilation cache at the host-keyed dir.
+    """Point JAX's persistent compilation cache at :func:`compile_cache_dir`
+    for the default backend (call it after any ``jax.distributed``
+    initialisation, which must precede the backends).
 
-    Safe to call from any entry point, any number of times; swallows
-    config errors on jax versions without these knobs.
-    """
+    Safe to call from any entry point, any number of times."""
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    path = compile_cache_dir(jax.default_backend())
+    if path is None:
+        return
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -1,6 +1,6 @@
 """Physics constants and configuration groups.
 
-TPU-native re-design of the reference parameter modules
+JAX re-design of the reference parameter modules
 (``src/common/module/yomcst.F90``, ``yoethf.F90``, ``yoecldp.F90``,
 ``yoephli.F90``, ``yoecld.F90``, ``yophnc.F90``, ``yomncl.F90``): each Fortran
 module becomes a frozen dataclass; the ``*_LOAD_PARAMETERS`` HDF5 readers

@@ -1,9 +1,9 @@
-"""Distributed execution over TPU meshes.
+"""Distributed execution over device meshes.
 
 Replaces the reference's MPI layer (``src/common/module/cloudsc_mpi_mod.F90``
 — init/finalize, reduce sum/min/max, gather; used for domain decomposition
-over grid points, validation reductions and perf gathering) with the
-TPU-native stack:
+over grid points, validation reductions and perf gathering) with JAX's
+SPMD stack:
 
 * **domain decomposition** — a 1-D ``jax.sharding.Mesh`` over all devices
   with the column axis of every field sharded (``NamedSharding``); the
@@ -11,8 +11,8 @@ TPU-native stack:
   layout.  The physics is embarrassingly parallel across columns (zero
   halo — SURVEY §3.4), so no kernel-side communication is ever emitted.
 * **reductions** — ``jnp.sum``/``jnp.max`` over sharded arrays inside
-  ``jit``; XLA inserts the all-reduce over ICI/DCN (this replaces
-  cloudsc_mpi_mod.F90:102-243).
+  ``jit``; XLA inserts the all-reduce (NCCL over NVLink between the cards
+  of a host; this replaces cloudsc_mpi_mod.F90:102-243).
 * **gather** — ``jax.experimental.multihost_utils`` /
   ``process_allgather`` for host-side perf tables
   (replaces :264-322).
@@ -26,6 +26,7 @@ TPU-native stack:
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import jax
@@ -34,6 +35,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 __all__ = [
     "initialize",
+    "local_card",
     "column_mesh",
     "column_sharding",
     "pad_columns",
@@ -46,17 +48,42 @@ __all__ = [
 COLS_AXIS = "columns"
 
 
+# launcher variables that hold a process's rank on its own host
+# (mpirun, srun, torchrun-style launchers)
+LOCAL_RANK_VARS = ("OMPI_COMM_WORLD_LOCAL_RANK", "SLURM_LOCALID", "LOCAL_RANK")
+
+
+def local_card(process_id: int) -> Optional[int]:
+    """The card a process of a multi-process launch binds to: its rank on
+    its own host.  That is the launcher's local rank where one is set,
+    else the global rank modulo the cards on this host (one process per
+    card, ranks numbered host by host).  None on a host with no card."""
+    for var in LOCAL_RANK_VARS:
+        if os.environ.get(var):
+            return int(os.environ[var])
+    from .device import cards_on_host
+
+    n = cards_on_host()
+    return process_id % n if n else None
+
+
 def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Multi-host runtime init (replaces CLOUDSC_MPI_INIT,
-    cloudsc_mpi_mod.F90:58-88).  No-op in single-process runs; in
-    multi-host deployments call once before any jax op (or rely on
-    auto-detection on TPU pods)."""
+    """Multi-process runtime init (replaces CLOUDSC_MPI_INIT,
+    cloudsc_mpi_mod.F90:58-88).  No-op in single-process runs; otherwise
+    call once before any jax op.
+
+    Each process is bound to one card, :func:`local_card` — one process
+    per card, as one process per MPI rank upstream.  Unbound, every
+    process would open every card of its host, and a JAX process
+    reserves most of a card's memory when it opens it."""
     if num_processes is not None and num_processes > 1:
+        card = local_card(process_id)
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_processes,
             process_id=process_id,
+            local_device_ids=None if card is None else [card],
         )
 
 

@@ -1,9 +1,11 @@
 """Input/reference file I/O and synthetic-state generation.
 
 Re-designs the reference I/O stack (``src/common/module/file_io_mod.F90``,
-``hdf5_file_mod.F90``, ``expand_mod.F90``) for the TPU framework:
+``hdf5_file_mod.F90``, ``expand_mod.F90``):
 
-* HDF5 is read/written with h5py; files keep the reference schema exactly
+* Archives are NumPy ``.npz`` (always available) or HDF5 ``.h5`` (read and
+  written through the optional h5py, imported only for an ``.h5`` path);
+  both keep the reference schema exactly
   (datasets stored ``(nlev[, +1], nlon)`` C-order float64, scalars as
   1-element datasets — see cloudsc2_array_state_mod.F90:161-199 and
   Appendix A of SURVEY.md).  :func:`write_input_h5` emits every dataset
@@ -116,9 +118,19 @@ def open_store(path, mode="r"):
         if mode != "r":
             raise ValueError("npz stores are written with write_store()")
         return _NpzStore(path)
-    import h5py
+    return _h5py().File(path, mode)
 
-    return h5py.File(path, mode)
+
+def _h5py():
+    """h5py, needed only for ``.h5`` archives."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing an .h5 archive needs h5py (pip install "
+            "'cloudsc2jax[hdf5]'); the bundled fixtures also exist as .npz"
+        ) from e
+    return h5py
 
 
 def write_store(path, datasets) -> None:
@@ -127,9 +139,7 @@ def write_store(path, datasets) -> None:
     if path.endswith(".npz"):
         np.savez(path, **{k: np.asarray(v) for k, v in datasets.items()})
         return
-    import h5py
-
-    with h5py.File(path, "w") as f:
+    with _h5py().File(path, "w") as f:
         for k, v in datasets.items():
             f.create_dataset(k, data=np.asarray(v))
 

@@ -1,6 +1,7 @@
 """Native host runtime (C++ via ctypes).
 
-Builds ``hostinfo.cpp`` on first use into the package directory; all
+Builds ``hostinfo.cpp`` on first use into the package directory (the
+built library is not tracked in git); all
 entry points degrade gracefully to Python fallbacks when a compiler is
 unavailable, mirroring how the reference makes MPI/HDF5 optional
 (cloudsc_mpi_mod.F90 no-op wrappers).
@@ -9,8 +10,10 @@ unavailable, mirroring how the reference makes MPI/HDF5 optional
 from __future__ import annotations
 
 import ctypes
+import os
 import pathlib
 import subprocess
+import tempfile
 import time
 
 __all__ = ["hostinfo"]
@@ -32,11 +35,22 @@ class _HostInfo:
         try:
             if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
                 try:
-                    subprocess.run(
-                        ["g++", "-O2", "-shared", "-fPIC", str(_SRC), "-o", str(_SO)],
-                        check=True,
-                        capture_output=True,
-                    )
+                    # build into a private file and rename it into place:
+                    # concurrent test workers may all build at once, and
+                    # none may load a half-written library
+                    fd, tmp = tempfile.mkstemp(dir=_DIR, suffix=".so.tmp")
+                    os.close(fd)
+                    try:
+                        subprocess.run(
+                            ["g++", "-O2", "-shared", "-fPIC", str(_SRC),
+                             "-o", tmp],
+                            check=True,
+                            capture_output=True,
+                        )
+                        os.replace(tmp, _SO)
+                    finally:
+                        if os.path.exists(tmp):
+                            os.unlink(tmp)
                 except Exception:
                     # no compiler / read-only install dir: a stale
                     # prebuilt .so still beats the Python fallbacks

@@ -1,13 +1,8 @@
 from .cloudsc2_kernel import (
+    BLOCK_COLS,
     Cloudsc2BlockedOutputs,
     cloudsc2_pallas,
     unblock_outputs,
-)
-from .experiments import (
-    EncodedInputs,
-    cloudsc2_pallas_encoded,
-    cloudsc2_pallas_tlad_fused,
-    encode_blocked_inputs,
 )
 from .tlad_kernel import (
     cloudsc2_pallas_ad,
@@ -15,13 +10,10 @@ from .tlad_kernel import (
 )
 
 __all__ = [
+    "BLOCK_COLS",
     "cloudsc2_pallas",
     "cloudsc2_pallas_tl",
     "cloudsc2_pallas_ad",
-    "cloudsc2_pallas_tlad_fused",
-    "cloudsc2_pallas_encoded",
-    "encode_blocked_inputs",
-    "EncodedInputs",
     "Cloudsc2BlockedOutputs",
     "unblock_outputs",
 ]

@@ -1,41 +1,43 @@
-"""Fused Pallas TPU kernels for the nonlinear CLOUDSC2 sweep.
+"""Pallas kernels (Triton route) for the nonlinear CLOUDSC2 sweep.
 
-Schedule (cf. SURVEY §7 step 5 and the Pallas TPU guide):
+Schedule — one column per lane, a block of columns per program:
 
-* Columns are tiled ``(S, 128)`` — whole VPU tiles.  The grid is
-  ``(column_blocks, nlev)`` with the **level axis innermost**: TPU grids
-  execute sequentially, so the vertical recurrence (rain/snow fluxes +
-  max-overlap fraction, cloudsc2.F90:339,475-481,720-723) is carried in
-  VMEM scratch across level steps, while the Pallas pipeline
-  double-buffers every level tile HBM→VMEM.
-* The *raw* model fields stream straight into the kernel — the
+* The grid runs over column blocks only.  Program ``b`` owns columns
+  ``[b*BC, (b+1)*BC)`` of every stream; ``BC`` is a power of two (the
+  Triton lowering loads and stores power-of-two shapes only).
+* A ``fori_loop`` over the levels runs inside the program.  The vertical
+  recurrence — rain/snow fluxes and the maximum-overlap precipitation
+  fraction (cloudsc2.F90:339,475-481,720-723) — is the loop carry, held
+  in registers.  Each level loads one ``(BC,)`` row of every input stream
+  and stores one row of every output: each stream crosses device memory
+  once.
+* Streams are levels-major ``(nlev, ncol)``, the HDF5 storage order.  The
   first-guess state, layer thickness and latent-heat factors are computed
-  in-register (cloudsc2.F90:253-277), and the off-level reads PAPH(k+1) /
-  PLU(k+1) (:272, :435) are expressed as shifted BlockSpec index maps on
-  the same HBM buffers, so no derived field is ever materialised.
-* ``levels_major=True`` accepts fields laid out ``(nlev, ncol)`` — the
-  HDF5 storage order (SURVEY Appendix A) — in which case blocking is a
-  pure reshape and the XLA pre/post passes contain no transposes at all.
-* An optional ``"resident"`` mode keeps all levels of a column block in
-  VMEM and loops in-kernel; measured slower than the streaming schedule
-  on v5e (fewer, larger blocks pipeline worse), kept for study.
+  in-register (cloudsc2.F90:253-277); the off-level reads PAPH(k+1) and
+  PLU(k+1) (:272, :435) are row loads at a shifted level of the same
+  buffer, so no derived field is ever materialised.
+* The per-level tables CETA and ZSCALM are scalar loads; the last-level
+  flag comes from the loop index.
 
-This is the f32 performance path (the -DSINGLE analogue,
-parkind1.F90:40-44); f64 validation uses the pure-JAX kernel.  Semantics
-are identical to :func:`cloudsc2jax.physics.cloudsc2.cloudsc2` — one
-source of truth for the math; this file only re-schedules it.
+``levels_major=True`` accepts and returns ``(nlev, ncol)`` fields, so the
+XLA passes around the call contain no transposes; ``blocked=True`` further
+takes columns already padded to a block multiple and returns the raw
+padded output streams, so nothing around the call copies at all.
+
+Semantics are identical to :func:`cloudsc2jax.physics.cloudsc2.cloudsc2`;
+:func:`_level_physics` is the one level body of every kernel — the TL and
+AD kernels (:mod:`.tlad_kernel`) differentiate it in-kernel.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..constants import Params
 from ..ops import damp_tangent
@@ -51,12 +53,13 @@ from ..physics.cloudsc2 import (
 )
 
 __all__ = [
+    "BLOCK_COLS",
     "cloudsc2_pallas",
     "Cloudsc2BlockedOutputs",
     "unblock_outputs",
 ]
 
-# raw per-level streams fed to the kernel, in order
+# raw per-level streams fed to the kernels, in order
 _LEVEL_FIELDS = (
     "pt", "pq", "pqs", "pap", "pl", "pi", "plude", "pmfu", "pmfd",
     "ten_t", "ten_q", "ten_l", "ten_i", "psupsat",
@@ -64,25 +67,23 @@ _LEVEL_FIELDS = (
 N_LEVEL_FIELDS = len(_LEVEL_FIELDS)  # + plu(k+1), paph(k), paph(k+1)
 N_OUTPUTS = 8  # tent, tenq, tenl, teni, pclc, pcov, rfln, sfln
 
-
-def _vmem_kw(vmem_limit_bytes):
-    """pallas_call kwargs raising Mosaic's scoped-VMEM budget (the
-    default ~16 MB rejects S=128 blocks for the TL/AD kernels; v5e
-    carries 128 MB of physical VMEM)."""
-    if vmem_limit_bytes is None:
-        return {}
-    return {"compiler_params": pltpu.CompilerParams(
-        vmem_limit_bytes=int(vmem_limit_bytes))}
+# Triton launch shape of every sweep: columns per program (a power of
+# two, and the column multiple of the padded levels-major layout), warps
+# and pipeline stages.  On one H100, 64-256 columns with 2-8 warps and 1-2
+# stages moved no sweep by more than run-to-run noise (PERF.md).
+BLOCK_COLS = 128
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
 def _level_physics(
     params: Params, ldrain1d: bool, scalars, fields, cols, carry,
     lregcl: bool = False,
 ):
-    """One level of CLOUDSC2 on an (S, 128) column tile.
+    """One level of CLOUDSC2 on a ``(BC,)`` column block.
 
     ``scalars`` = (ceta_k, zscalm_k, not_last); ``fields`` = the 14 raw
-    level tiles + (plu_k1, paph_lo, paph_hi); ``cols`` = (ztrpaus,
+    level rows + (plu_k1, paph_lo, paph_hi); ``cols`` = (ztrpaus,
     paph_sfc); ``carry`` = (zrfl, zsfl, zcovptot).  Returns
     (outputs, new_carry).  Line references cite
     src/cloudsc2_nl/cloudsc2.F90.
@@ -345,114 +346,54 @@ def _level_physics(
     return outputs, (zrfln, zsfln, zcovptot)
 
 
-def _stream_kernel(*refs, params: Params, ldrain1d: bool,
-                   fuse_satur: bool = False, encoded: bool = False):
-    """Grid (nb, nlev): one level tile per step, carry in VMEM scratch.
-
-    ``encoded=True`` adds three VMEM operands — lane-broadcast rows of
-    the per-(stream, level) affine decode table of
-    :func:`.experiments.encode_blocked_inputs`, fetched at the same level indices as
-    the streams they decode (k / min(k+1, nlev-1) / k+1) — and upcasts
-    int16 streams in-register on load (``x*scale + offset``); the decode
-    is a VPU convert+FMA per element, fully hidden behind the halved DMA
-    stream.  (The compact table exceeds the 1 MB SMEM budget once
-    scalar-expanded, hence VMEM rows.)
-    """
-    if encoded == "full":
-        (ceta_ref, zscalm_ref, notlast_ref,
-         enclev_ref, encplu_ref, enchi_ref, *rest) = refs
-    elif encoded:  # "lev": only level-mapped streams are encoded
-        (ceta_ref, zscalm_ref, notlast_ref, enclev_ref, *rest) = refs
-        encplu_ref = enchi_ref = None
-    else:
-        (ceta_ref, zscalm_ref, notlast_ref, *rest) = refs
-    nf = N_LEVEL_FIELDS + 3 - (1 if fuse_satur else 0)
-    lev_refs = rest[:nf]
-    ztrpaus_ref, paphsfc_ref = rest[nf : nf + 2]
-    out_refs = rest[nf + 2 : nf + 2 + N_OUTPUTS]
-    rfl_s, sfl_s, cov_s = rest[nf + 2 + N_OUTPUTS :]
-
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _init():
-        rfl_s[...] = jnp.zeros_like(rfl_s)
-        sfl_s[...] = jnp.zeros_like(sfl_s)
-        cov_s[...] = jnp.zeros_like(cov_s)
-
-    scalars = (ceta_ref[k, 0], zscalm_ref[k, 0], notlast_ref[k, 0] > 0)
-    if encoded:
-        def dec(i, r):
-            x = r[0, 0]
-            if r.dtype == jnp.float32:
-                return x
-            if i == nf - 3:  # plu(k+1) stream
-                if encplu_ref is None:
-                    raise ValueError("encoded='lev' requires f32 plu")
-                sc, off = encplu_ref[0, 0, :], encplu_ref[0, 1, :]
-            elif i == nf - 1:  # paph(k+1) stream
-                if enchi_ref is None:
-                    raise ValueError("encoded='lev' requires f32 paph")
-                sc, off = enchi_ref[0, 0, :], enchi_ref[0, 1, :]
-            else:
-                sc, off = enclev_ref[0, 2 * i, :], enclev_ref[0, 2 * i + 1, :]
-            return x.astype(jnp.float32) * sc + off
-
-        fields = tuple(dec(i, r) for i, r in enumerate(lev_refs))
-    else:
-        fields = tuple(r[0, 0] for r in lev_refs)
-    if fuse_satur:
-        # stream order without pqs: pt, pq, pap, ... — rebuild the full
-        # tuple with qsat computed in-register from the validated SATUR
-        # (the driver's SATUR-then-CLOUDSC2 work unit as one sweep,
-        # cloudsc_driver_mod.F90:91-107); pure jnp, traceable in-kernel
-        pqs = satur(fields[2], fields[0], params, lphylin=True, kflag=2)
-        fields = fields[:2] + (pqs,) + fields[2:]
-    cols = (ztrpaus_ref[0], paphsfc_ref[0])
-    carry = (rfl_s[...], sfl_s[...], cov_s[...])
-
-    outputs, (zrfln, zsfln, zcovptot) = _level_physics(
-        params, ldrain1d, scalars, fields, cols, carry
-    )
-    for r, val in zip(out_refs, outputs):
-        r[0, 0] = val
-    rfl_s[...] = zrfln
-    sfl_s[...] = zsfln
-    cov_s[...] = zcovptot
+def _level_scalars(ceta_ref, zscalm_ref, k, nlev):
+    """(ceta_k, zscalm_k, not_last) of level ``k``."""
+    return ceta_ref[k], zscalm_ref[k], k < nlev - 1
 
 
-def _resident_kernel(*refs, params: Params, ldrain1d: bool, nlev: int):
-    """Grid (nb,): all levels VMEM-resident, fori_loop over levels.
+def _level_fields(lev_refs, plu_ref, paph_ref, k, nlev):
+    """The level-``k`` rows of the raw streams, then the shifted reads
+    plu(min(k+1, nlev-1)), paph(k), paph(k+1)."""
+    k1 = jnp.minimum(k + 1, nlev - 1)
+    return (*(r[k] for r in lev_refs), plu_ref[k1], paph_ref[k],
+            paph_ref[k + 1])
 
-    Measured slower than the streaming schedule on v5e; retained for
-    block-size studies.
-    """
-    (ceta_ref, zscalm_ref, notlast_ref, *rest) = refs
-    nf = N_LEVEL_FIELDS
-    lev_refs = rest[:nf]
-    plu_ref, paph_ref = rest[nf : nf + 2]
-    ztrpaus_ref, paphsfc_ref = rest[nf + 2 : nf + 4]
-    out_refs = rest[nf + 4 : nf + 4 + N_OUTPUTS]
 
-    cols = (ztrpaus_ref[0], paphsfc_ref[0])
-    shape = ztrpaus_ref.shape[1:]  # (S, 128)
-    zero = jnp.zeros(shape, ztrpaus_ref.dtype)
+def _nl_kernel(ceta_ref, zscalm_ref, *refs, params: Params, ldrain1d: bool,
+               nlev: int, fuse_satur: bool):
+    """One column block: ascending level loop, carry in registers.
+
+    Three output refs past the 8 outputs store each level's carry-in
+    (rfl, sfl, covptot): the whole trajectory a reverse sweep needs, since
+    that is the only state that crosses levels (≙ cloudsc2ad.F90's
+    forward sweep with its ~40 (KLON,KLEV) arrays reduced to three)."""
+    nf = N_LEVEL_FIELDS - (1 if fuse_satur else 0)
+    lev_refs = refs[:nf]
+    plu_ref, paph_ref, ztrpaus_ref, paphsfc_ref = refs[nf:nf + 4]
+    out_refs = refs[nf + 4:nf + 4 + N_OUTPUTS]
+    ckpt_refs = refs[nf + 4 + N_OUTPUTS:]
+    cols = (ztrpaus_ref[...], paphsfc_ref[...])
 
     def body(k, carry):
-        scalars = (ceta_ref[k, 0], zscalm_ref[k, 0], notlast_ref[k, 0] > 0)
-        k1 = jnp.minimum(k + 1, nlev - 1)
-        fields = tuple(r[k, 0] for r in lev_refs) + (
-            plu_ref[k1, 0],
-            paph_ref[k, 0],
-            paph_ref[k + 1, 0],
+        fields = _level_fields(lev_refs, plu_ref, paph_ref, k, nlev)
+        if fuse_satur:
+            # stream order without pqs: pt, pq, pap, ... — qsat computed
+            # in-register from the validated SATUR (the driver's
+            # SATUR-then-CLOUDSC2 work unit as one sweep,
+            # cloudsc_driver_mod.F90:91-107)
+            pqs = satur(fields[2], fields[0], params, lphylin=True, kflag=2)
+            fields = fields[:2] + (pqs,) + fields[2:]
+        outs, new_carry = _level_physics(
+            params, ldrain1d, _level_scalars(ceta_ref, zscalm_ref, k, nlev),
+            fields, cols, carry,
         )
-        outputs, new_carry = _level_physics(
-            params, ldrain1d, scalars, fields, cols, carry
-        )
-        for r, val in zip(out_refs, outputs):
-            r[k, 0] = val
+        for r, v in zip(out_refs, outs):
+            r[k] = v
+        for r, v in zip(ckpt_refs, carry):
+            r[k] = v
         return new_carry
 
+    zero = jnp.zeros_like(cols[0])
     jax.lax.fori_loop(0, nlev, body, (zero, zero, zero))
 
 
@@ -471,15 +412,12 @@ def _tropopause_eta_lm(ztp1_lm, ceta):
 
 
 class Cloudsc2BlockedOutputs(NamedTuple):
-    """Raw kernel output streams in blocked layout ``(nlev, nb, S, 128)``.
+    """Raw kernel output streams, levels-major ``(nlev, ncol_padded)``.
 
-    The zero-copy fast path: reshaping blocked streams back to
-    ``(ncol, nlev)`` is a physical relayout on TPU (tiled layouts), which
-    costs more than the kernel itself at 160k columns — callers that can
-    consume blocked data (benchmarks, device-side validation, downstream
-    blocked ops) should.  ``unblock_outputs`` converts to the standard
-    :class:`Cloudsc2Outputs` contract (flux top row + enthalpy fluxes,
-    cloudsc2.F90:694-735).
+    The zero-copy contract for callers that consume padded levels-major
+    data (benchmarks, device-side validation).  ``unblock_outputs``
+    converts to the standard :class:`Cloudsc2Outputs` contract (flux top
+    row + enthalpy fluxes, cloudsc2.F90:694-735).
     """
 
     tenl_t: jax.Array
@@ -496,12 +434,9 @@ def unblock_outputs(
     out: Cloudsc2BlockedOutputs, params: Params, ncol: int,
     levels_major: bool = False,
 ) -> Cloudsc2Outputs:
-    """Blocked streams -> standard Cloudsc2Outputs (slow relayout path)."""
-    def from_blocks(x):
-        return x.reshape(x.shape[0], -1)[:, :ncol]
-
+    """Raw padded streams -> standard Cloudsc2Outputs of ``ncol`` columns."""
     tent, tenq, tenl, teni, pclc, pcov, rfln, sfln = [
-        from_blocks(o) for o in out
+        o[:, :ncol] for o in out
     ]
     top = jnp.zeros((1, ncol), rfln.dtype)
     pfplsl = jnp.concatenate([top, rfln], axis=0)
@@ -519,64 +454,33 @@ def unblock_outputs(
 
 
 # ------------------------------------------------------------------ layout
-def _level_index_maps(nlev: int, rev: bool):
-    """The (level, block) BlockSpec index maps shared by EVERY blocked
-    sweep (NL, TL, AD, encoded): the plain level window, the clamped
-    plu(k+1) shift, and the paph(k+1) high-edge window — forward, or
-    with the level axis reversed (DO JK=KLEV,1,-1).  One definition so a
-    clamp fix propagates to all sweeps at once."""
-    if rev:
-        lev = lambda b, k: (nlev - 1 - k, b, 0, 0)
-        plu = lambda b, k: (jnp.minimum(nlev - k, nlev - 1), b, 0, 0)
-        hi = lambda b, k: (nlev - k, b, 0, 0)
-    else:
-        lev = lambda b, k: (k, b, 0, 0)
-        plu = lambda b, k: (jnp.minimum(k + 1, nlev - 1), b, 0, 0)
-        hi = lambda b, k: (k + 1, b, 0, 0)
-    return lev, plu, hi
-
-
-def enc_table_rows(table, nlev: int):
-    """Lane-broadcast decode rows (see _stream_kernel docstring): the
-    compact (nf, nlev+1, 2) affine table becomes (nlev+1, 2*nf, 128) so
-    kernels read whole (128,) scale/offset lanes — a ~19 KB/step DMA,
-    ~3% of the halved stream bytes."""
-    nf = table.shape[0]
-    return jnp.broadcast_to(
-        jnp.transpose(table, (1, 0, 2)).reshape(nlev + 1, 2 * nf)[..., None],
-        (nlev + 1, 2 * nf, 128),
-    )
-
-
 class _Layout:
-    """Blocked levels-major layout shared by the NL and TL/AD wrappers:
-    transpose to
-    ``(nlev, ncol)`` unless ``levels_major``, pad columns to a multiple of
-    ``sublanes*128`` (replicating column 0 — inputs are tile-replicated
-    upstream anyway, expand_mod.F90 semantics), reshape to
-    ``(L, nb, S, 128)`` blocks.
+    """Levels-major padded layout shared by the NL, TL and AD wrappers.
+
+    Transposes to ``(nlev, ncol)`` unless ``levels_major``/``blocked``,
+    pads columns to a multiple of ``block_cols`` by replicating column 0
+    (inputs are tile-replicated upstream anyway, expand_mod.F90
+    semantics) unless ``blocked`` (already padded), and builds the block
+    specs of the column grid.
     """
 
     def __init__(self, inputs: Cloudsc2Inputs, params: Params,
-                 sublanes: int, levels_major: bool, blocked: bool = False):
+                 block_cols: int, levels_major: bool, blocked: bool = False):
+        if block_cols & (block_cols - 1):
+            raise ValueError(f"block_cols must be a power of two, "
+                             f"got {block_cols}")
         arrs = {k: jnp.asarray(v) for k, v in inputs._asdict().items()}
-        self.blocked = blocked
-        if blocked:
-            # operands already in kernel layout (nlev[,+1], nb, S, 128):
-            # the zero-relayout fast path (see cloudsc2_kernel docstring)
-            self.nlev, self.nb, self.sublanes, _ = arrs["pt"].shape
-            self.ncol = None
-            self.bc = self.sublanes * 128
-            self.npad = 0
-        else:
-            if not levels_major:
-                arrs = {k: v.T for k, v in arrs.items()}
-            self.nlev, self.ncol = arrs["pt"].shape
-            self.sublanes = sublanes
-            self.bc = sublanes * 128
-            self.nb = max(1, math.ceil(self.ncol / self.bc))
-            self.npad = self.nb * self.bc - self.ncol
-        self.arrs = arrs
+        if not (levels_major or blocked):
+            arrs = {k: v.T for k, v in arrs.items()}
+        self.nlev, self.ncol = arrs["pt"].shape
+        self.bc = block_cols
+        self.nb = max(1, -(-self.ncol // block_cols))
+        self.npad = self.nb * block_cols - self.ncol
+        if blocked and self.npad:
+            raise ValueError(
+                f"blocked inputs need a column count that is a multiple of "
+                f"{block_cols}, got {self.ncol}")
+        self.arrs = {k: self.padcols(v) for k, v in arrs.items()}
         self.dtype = arrs["pt"].dtype
 
         ceta = jnp.asarray(params.ceta, self.dtype)
@@ -584,11 +488,10 @@ class _Layout:
         self.zscalm = (_ZSCAL * jnp.maximum(ceta - 0.2, _ZEPS1) ** 0.2).astype(
             self.dtype
         )
-        self.notlast = (jnp.arange(self.nlev) < self.nlev - 1).astype(jnp.int32)
-
-        ztp1 = arrs["pt"] + params.ptsphy * arrs["ten_t"]
-        self.ztrpaus_b = self.colblocks(_tropopause_eta_lm(ztp1, ceta))
-        self.paphsfc_b = self.colblocks(arrs["paph"][self.nlev])
+        a = self.arrs
+        ztp1 = a["pt"] + params.ptsphy * a["ten_t"]
+        self.ztrpaus = _tropopause_eta_lm(ztp1, ceta)
+        self.paphsfc = a["paph"][self.nlev]
 
     def padcols(self, x):
         if self.npad == 0:
@@ -597,128 +500,84 @@ class _Layout:
             [x, jnp.broadcast_to(x[..., :1], x.shape[:-1] + (self.npad,))], -1
         )
 
-    def to_blocks(self, x):  # (L, ncol) -> (L, nb, S, 128)
-        if self.blocked:
-            return x
-        return self.padcols(x).reshape(x.shape[0], self.nb, self.sublanes, 128)
+    def from_blocks(self, x):  # (L, ncol_padded) -> (L, ncol)
+        return x if self.npad == 0 else x[:, : self.ncol]
 
-    def colblocks(self, x):  # (ncol,) -> (nb, S, 128)
-        if self.blocked:
-            return x  # already (nb, S, 128)
-        return self.padcols(x).reshape(self.nb, self.sublanes, 128)
+    def level_operands(self, arrs, names=_LEVEL_FIELDS):
+        """The primal-ordered streams: level fields, then plu and paph."""
+        return (*(arrs[n] for n in names), arrs["plu"], arrs["paph"])
 
-    def from_blocks(self, x):  # (L, nb, S, 128) -> (L, ncol)
-        if self.blocked:
-            return x
-        return x.reshape(x.shape[0], self.nb * self.bc)[:, : self.ncol]
+    def stream_spec(self, rows=None):
+        rows = self.nlev if rows is None else rows
+        return pl.BlockSpec((rows, self.bc), lambda b: (0, b))
 
-    def level_operands(self, arrs):
-        """The 17 primal-ordered streams: 14 level fields + plu, paph x2."""
-        blocks = [self.to_blocks(arrs[name]) for name in _LEVEL_FIELDS]
-        return (*blocks, self.to_blocks(arrs["plu"]),
-                self.to_blocks(arrs["paph"]), self.to_blocks(arrs["paph"]))
+    def col_spec(self):
+        return pl.BlockSpec((self.bc,), lambda b: (b,))
 
-    # BlockSpecs.  ``rev`` runs the level axis backwards (DO JK=KLEV,1,-1).
-    def specs(self, rev: bool):
-        blk = (1, 1, self.sublanes, 128)
-        lev, plu, hi = _level_index_maps(self.nlev, rev)
-        mk = lambda im: pl.BlockSpec(blk, im, memory_space=pltpu.VMEM)
-        lev_s, plu_s, hi_s = mk(lev), mk(plu), mk(hi)
-        col_s = pl.BlockSpec(
-            (1, self.sublanes, 128), lambda b, k: (b, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-        smem_s = pl.BlockSpec(memory_space=pltpu.SMEM)
-        return lev_s, plu_s, hi_s, col_s, smem_s
+    def table_spec(self):
+        return pl.BlockSpec((self.nlev,), lambda b: (0,))
 
-    def field_specs(self, rev: bool):
-        lev_s, plu_s, hi_s, _, _ = self.specs(rev)
-        return [lev_s] * N_LEVEL_FIELDS + [plu_s, lev_s, hi_s]
+    def stream_specs(self, n_level_fields=N_LEVEL_FIELDS):
+        """Specs of ``level_operands``: level fields, plu, paph."""
+        return ([self.stream_spec()] * (n_level_fields + 1)
+                + [self.stream_spec(self.nlev + 1)])
 
-    # Specs for the in-place shift-scatter reverse sweep
-    # (tlad_kernel._rev_kernel inplace_scatter): the grid gains one FLUSH
-    # step (k == nlev), so every input map must stay valid there — the
-    # plain level map is clamped at 0 (revisiting step nlev-1's block:
-    # Mosaic elides the DMA and untouched output buffers keep their
-    # values); the plu(k+1)/paph(k+1) reversed maps already land on valid
-    # blocks at k == nlev.
-    def flush_field_specs(self):
-        """(17 input specs, the clamped plain spec for ckpt/seed/plain-
-        adjoint streams, the d_plu out spec, the d_paph out spec)."""
-        n = self.nlev
-        _, plu, hi = _level_index_maps(n, rev=True)
-        lev = lambda b, k: (jnp.maximum(n - 1 - k, 0), b, 0, 0)
-        blk = (1, 1, self.sublanes, 128)
-        mk = lambda im: pl.BlockSpec(blk, im, memory_space=pltpu.VMEM)
-        lev_s = mk(lev)
-        in_specs = [lev_s] * N_LEVEL_FIELDS + [mk(plu), lev_s, mk(hi)]
-        # output maps write slot kr+1 = nlev-k at compute steps and slot
-        # 0 at the flush step; d_plu has nlev rows so its first write
-        # (k=0, the exactly-zero last-level cotangent) clamps onto slot
-        # nlev-1 and is overwritten by the next (consecutive) step
-        dplu_s = mk(lambda b, k: (jnp.minimum(n - k, n - 1), b, 0, 0))
-        dpaph_s = mk(lambda b, k: (n - k, b, 0, 0))
-        return in_specs, lev_s, dplu_s, dpaph_s
+    def out_shape(self, rows=None):
+        rows = self.nlev if rows is None else rows
+        return jax.ShapeDtypeStruct((rows, self.nb * self.bc), self.dtype)
 
-    def paph_shape(self):
-        return jax.ShapeDtypeStruct(
-            (self.nlev + 1, self.nb, self.sublanes, 128), self.dtype
+    def call(self, kernel, sweep, in_specs, out_specs, out_shape, operands,
+             interpret):
+        """``pallas_call`` over the column grid, Triton route, with the
+        per-level tables prepended to the operands."""
+        return pl.pallas_call(
+            kernel,
+            grid=(self.nb,),
+            in_specs=[self.table_spec()] * 2 + list(in_specs),
+            out_specs=out_specs,
+            out_shape=out_shape,
+            backend="triton",
+            compiler_params=pltriton.CompilerParams(
+                num_warps=min(NUM_WARPS, max(1, self.bc // 32)),
+                num_stages=NUM_STAGES,
+            ),
+            interpret=interpret,
+            name=f"cloudsc2_{sweep}",
+        )(self.ceta, self.zscalm, *operands)
+
+
+def _check_lphylin(params: Params, ldrain1d: bool, what: str):
+    if not (bool(params.yrephli.lphylin) or ldrain1d):
+        # the level body hardcodes the LPHYLIN dqs/dT branch (the
+        # reference entry programs force LPHYLIN=.TRUE.,
+        # dwarf_cloudsc.F90:107); the FOEALFA branch lives only in the
+        # pure-JAX kernel — refuse rather than silently diverge
+        raise NotImplementedError(
+            f"{what} implements the LPHYLIN=True configuration only; use "
+            "physics.cloudsc2 / cloudsc2jax.tlad for lphylin=False"
         )
 
-    # C-level chunk variant (the per-step window-issue-latency
-    # experiment, DESIGN.md §8): each grid step moves a (C,1,S,128)
-    # block of every stream and loops the level body C times
-    # in-register, so the grid has ceil(nlev/C) level steps.  The
-    # single-level shifted views plu(k+1)/paph(k+1) become slot c+1 of
-    # the same chunk, or slot 0 of the NEIGHBOUR chunk (the ``*_nxt``
-    # operands) at the chunk boundary — index maps stay block-aligned.
-    def chunk_field_specs(self, C: int, rev: bool):
-        """Returns (in_specs for 14 lev + plu/plu_nxt + paph/paph_nxt,
-        the chunk lev spec for outputs, nchunks)."""
-        nch = -(-self.nlev // C)
-        nch_paph = -(-(self.nlev + 1) // C)
-        blk = (C, 1, self.sublanes, 128)
-        if rev:
-            cm = lambda b, k: (nch - 1 - k, b, 0, 0)
-            nx = lambda lim: (
-                lambda b, k: (jnp.minimum(nch - k, lim), b, 0, 0)
-            )
-        else:
-            cm = lambda b, k: (k, b, 0, 0)
-            nx = lambda lim: (
-                lambda b, k: (jnp.minimum(k + 1, lim), b, 0, 0)
-            )
-        mk = lambda im: pl.BlockSpec(blk, im, memory_space=pltpu.VMEM)
-        lev_s = mk(cm)
-        specs = [lev_s] * N_LEVEL_FIELDS + [
-            lev_s, mk(nx(nch - 1)), lev_s, mk(nx(nch_paph - 1)),
-        ]
-        return specs, lev_s, nch
 
-    def chunk_operands(self, arrs):
-        """The chunked stream order: 14 level fields, then plu twice
-        (chunk + neighbour chunk) and paph twice (same)."""
-        blocks = [self.to_blocks(arrs[name]) for name in _LEVEL_FIELDS]
-        plu = self.to_blocks(arrs["plu"])
-        paph = self.to_blocks(arrs["paph"])
-        return (*blocks, plu, plu, paph, paph)
-
-    def out_shape(self):
-        return jax.ShapeDtypeStruct(
-            (self.nlev, self.nb, self.sublanes, 128), self.dtype
-        )
-
-    def col_shape(self):
-        return jax.ShapeDtypeStruct((self.nb, self.sublanes, 128), self.dtype)
-
-    def scalar_args(self):
-        n = self.nlev
-        return (self.ceta.reshape(n, 1), self.zscalm.reshape(n, 1),
-                self.notlast.reshape(n, 1))
-
-    def scratch(self, n):
-        return [pltpu.VMEM((self.sublanes, 128), self.dtype)] * n
-
+def nl_sweep(lay: _Layout, params: Params, *, ldrain1d: bool,
+             fuse_satur: bool = False, save_checkpoints: bool = False,
+             interpret: bool = False):
+    """The NL kernel on a prepared layout: returns the 8 raw padded
+    output streams, then the 3 carry-in checkpoint streams if
+    ``save_checkpoints``."""
+    names = [n for n in _LEVEL_FIELDS if not (fuse_satur and n == "pqs")]
+    kernel = functools.partial(
+        _nl_kernel, params=params, ldrain1d=ldrain1d, nlev=lay.nlev,
+        fuse_satur=fuse_satur,
+    )
+    nout = N_OUTPUTS + (3 if save_checkpoints else 0)
+    return lay.call(
+        kernel, "nl",
+        lay.stream_specs(len(names)) + [lay.col_spec()] * 2,
+        [lay.stream_spec()] * nout,
+        [lay.out_shape()] * nout,
+        (*lay.level_operands(lay.arrs, names), lay.ztrpaus, lay.paphsfc),
+        interpret,
+    )
 
 
 def cloudsc2_pallas(
@@ -726,127 +585,35 @@ def cloudsc2_pallas(
     params: Params,
     *,
     ldrain1d: bool = False,
-    sublanes: int = 128,
-    mode: str = "stream",
+    block_cols: int = BLOCK_COLS,
     levels_major: bool = False,
     blocked: bool = False,
     fuse_satur: bool = False,
-    vmem_limit_bytes: int | None = None,
     interpret: bool = False,
 ) -> Cloudsc2Outputs:
-    """Fused-kernel CLOUDSC2; drop-in for :func:`cloudsc2` (f32 path).
+    """Fused-kernel CLOUDSC2; drop-in for :func:`cloudsc2`.
 
-    ``fuse_satur=True`` (stream mode) computes qsat in-kernel from the
-    streamed PT/PAP instead of reading a PQS stream — the reference
-    driver's SATUR + CLOUDSC2 work unit as ONE sweep, one less HBM
-    stream (``inputs.pqs`` is then ignored).
+    ``fuse_satur=True`` computes qsat in-kernel from the streamed PT/PAP
+    instead of reading a PQS stream — the reference driver's SATUR +
+    CLOUDSC2 work unit as ONE sweep, one less stream (``inputs.pqs`` is
+    then ignored).
 
     ``levels_major=True`` expects each input field shaped ``(nlev, ncol)``
     (HDF5 storage order) and returns outputs in the same layout — the
-    zero-transpose fast path.  Default accepts/returns the framework's
+    zero-transpose path.  Default accepts/returns the framework's
     ``(ncol, nlev)`` layout.  Columns are padded to a multiple of
-    ``sublanes*128`` (padding replicates column 0 — inputs are
-    tile-replicated upstream anyway, expand_mod.F90 semantics).
+    ``block_cols``, the columns of one Triton program.
 
-    ``blocked=True`` is the zero-RELAYOUT fast path: inputs arrive
-    already in kernel layout ``(nlev[,+1], nb, S, 128)`` (e.g. from
-    ``Cloudsc2State.device_kernel_inputs(..., blocked_sublanes=S)``) and
-    the raw output streams are returned as
-    :class:`Cloudsc2BlockedOutputs` without reshaping.  Measured on v5e:
-    the (nlev, ncol) <-> blocked reshape is a physical tiled-layout copy
-    that costs more than the whole kernel at 160k columns — this path
-    runs the sweep at the streaming-pipeline speed of light (~390 GB/s).
+    ``blocked=True`` is the zero-copy path: levels-major inputs already
+    padded to a multiple of ``block_cols`` (e.g. from
+    ``Cloudsc2State.device_kernel_inputs(..., block_multiple=BLOCK_COLS)``)
+    and the raw padded output streams returned as
+    :class:`Cloudsc2BlockedOutputs`.
     """
-    if mode not in ("stream", "resident"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if blocked and mode != "stream":
-        raise ValueError("blocked layout supports mode='stream' only")
-    if fuse_satur and mode != "stream":
-        raise ValueError("fuse_satur supports mode='stream' only")
-    if not (bool(params.yrephli.lphylin) or ldrain1d):
-        # the fused kernels hardcode the LPHYLIN dqs/dT branch (the
-        # reference entry programs force LPHYLIN=.TRUE.,
-        # dwarf_cloudsc.F90:107); the FOEALFA branch lives only in the
-        # pure-JAX kernel — refuse rather than silently diverge
-        raise NotImplementedError(
-            "cloudsc2_pallas implements the LPHYLIN=True configuration "
-            "only; use physics.cloudsc2 for lphylin=False"
-        )
-
-    lay = _Layout(inputs, params, sublanes, levels_major, blocked=blocked)
-    nlev, nb, sublanes = lay.nlev, lay.nb, lay.sublanes
-
-    names = [
-        n for n in _LEVEL_FIELDS if not (fuse_satur and n == "pqs")
-    ]
-    lev_blocks = [lay.to_blocks(lay.arrs[name]) for name in names]
-    plu_b = lay.to_blocks(lay.arrs["plu"])
-    paph_b = lay.to_blocks(lay.arrs["paph"])  # (nlev+1, nb, S, 128)
-
-    lev_spec, plu_spec, paph_hi_spec, col_spec, smem_spec = lay.specs(rev=False)
-
-    if mode == "stream":
-        out_spec = lev_spec
-        grid = (nb, nlev)
-        kernel = functools.partial(
-            _stream_kernel, params=params, ldrain1d=ldrain1d,
-            fuse_satur=fuse_satur,
-        )
-        scratch = lay.scratch(3)
-        in_specs = (
-            [smem_spec] * 3
-            + [lev_spec] * len(lev_blocks)
-            + [plu_spec, lev_spec, paph_hi_spec]
-            + [col_spec] * 2
-        )
-        operands = (*lev_blocks, plu_b, paph_b, paph_b,
-                    lay.ztrpaus_b, lay.paphsfc_b)
-    else:  # resident
-        lev_spec = pl.BlockSpec(
-            (nlev, 1, sublanes, 128), lambda b: (0, b, 0, 0), memory_space=pltpu.VMEM
-        )
-        plu_spec = lev_spec
-        paph_spec = pl.BlockSpec(
-            (nlev + 1, 1, sublanes, 128), lambda b: (0, b, 0, 0),
-            memory_space=pltpu.VMEM,
-        )
-        col_spec = pl.BlockSpec(
-            (1, sublanes, 128), lambda b: (b, 0, 0), memory_space=pltpu.VMEM
-        )
-        out_spec = lev_spec
-        grid = (nb,)
-        kernel = functools.partial(
-            _resident_kernel, params=params, ldrain1d=ldrain1d, nlev=nlev
-        )
-        scratch = []
-        in_specs = (
-            [smem_spec] * 3
-            + [lev_spec] * N_LEVEL_FIELDS
-            + [plu_spec, paph_spec]
-            + [col_spec] * 2
-        )
-        operands = (*lev_blocks, plu_b, paph_b, lay.ztrpaus_b, lay.paphsfc_b)
-
-    flops_per_level_col = 292  # SURVEY §3.5
-    cost = pl.CostEstimate(
-        flops=flops_per_level_col * nlev * nb * lay.bc,
-        bytes_accessed=(len(lev_blocks) + 3 + N_OUTPUTS)
-        * nlev * nb * lay.bc * lay.dtype.itemsize,
-        transcendentals=(12 if fuse_satur else 10) * nlev * nb * lay.bc,
-    )
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=[out_spec] * N_OUTPUTS,
-        out_shape=[lay.out_shape()] * N_OUTPUTS,
-        scratch_shapes=scratch,
-        cost_estimate=cost,
-        interpret=interpret,
-        **_vmem_kw(vmem_limit_bytes),
-    )(*lay.scalar_args(), *operands)
-
+    _check_lphylin(params, ldrain1d, "cloudsc2_pallas")
+    lay = _Layout(inputs, params, block_cols, levels_major, blocked=blocked)
+    outs = nl_sweep(lay, params, ldrain1d=ldrain1d, fuse_satur=fuse_satur,
+                    interpret=interpret)
     if blocked:
         return Cloudsc2BlockedOutputs(*outs)
     return unblock_outputs(

@@ -1,4 +1,4 @@
-"""Hand-scheduled Pallas TPU kernels for the CLOUDSC2 tangent-linear and
+"""Pallas kernels (Triton route) for the CLOUDSC2 tangent-linear and
 adjoint sweeps.
 
 The reference maintains hand-written TL/AD Fortran kernels
@@ -16,41 +16,33 @@ The reference maintains hand-written TL/AD Fortran kernels
 Here both derive from the *single* nonlinear level body
 (:func:`cloudsc2jax.pallas.cloudsc2_kernel._level_physics`) via in-kernel
 ``jax.jvp`` / ``jax.vjp`` at trace time — the tangent/adjoint statements
-are generated, not hand-maintained, yet the *schedule* is exactly the
-reference's:
+are generated, not hand-maintained, yet the *schedule* is the
+reference's.  Both kernels use the NL kernel's schedule: a grid over
+column blocks, the level loop inside the program, carries in registers.
 
-* :func:`cloudsc2_pallas_tl` — grid ``(column_blocks, nlev)``, level axis
-  innermost; VMEM scratch carries both the primal (rain, snow, covptot)
-  and its tangent across level steps; the per-level body is
-  ``jax.jvp(level_physics)`` so trajectory and perturbation stream
-  through the VPU together, exactly like the dual statements of
-  cloudsc2tl.F90.
-* :func:`cloudsc2_pallas_ad` — two kernels.  The forward kernel is the
-  NL stream schedule plus three extra output streams holding the
-  *carry-in* of every level (the minimal checkpoint: the only
+* :func:`cloudsc2_pallas_tl` — the loop carries the primal (rain, snow,
+  covptot) and its tangent; the per-level body is
+  ``jax.jvp(level_physics)``, so trajectory and perturbation are computed
+  together, like the dual statements of cloudsc2tl.F90.
+* :func:`cloudsc2_pallas_ad` — the forward sweep is the NL kernel storing
+  the carry-in of every level (the minimal checkpoint: the only
   cross-level state is (rfl, sfl, covptot), so the reference's ~40
-  trajectory arrays shrink to 3 — everything else is recomputed
-  in-register during the reverse sweep, the remat trade measured 4.5x
-  faster in XLA).  The reverse kernel runs the grid with *reversed
-  BlockSpec index maps* (block ``nlev-1-k`` at step ``k`` — the
-  hardware expression of ``DO JK = KLEV, 1, -1``), recomputes the level
-  body from the raw fields + carry checkpoint, and transposes it with
-  ``jax.vjp``; the adjoint carry lives in VMEM scratch.
-
-The measured-negative alternatives (single-call fused TL+AD with
-VMEM-resident checkpoints, int16-encoded stream variants) live in
-:mod:`.experiments`; they reuse this file's kernel bodies via the
-``encoded=``/``chunk`` plumbing, so the physics stays single-sourced
-(DESIGN.md §8).
+  trajectory arrays shrink to 3; everything else is recomputed
+  in-register).  The reverse kernel runs the level loop downwards
+  (``DO JK = KLEV, 1, -1``), recomputes the level body from the raw
+  fields and the checkpoint, and transposes it with ``jax.vjp``; the
+  adjoint carry is a loop carry.  The shifted reads PLU(k+1) and
+  PAPH(k+1) transpose into plain row writes: ``d_plu[k+1]`` and
+  ``d_paph[k+1] = hi(k) + lo(k+1)`` with ``lo`` carried from the previous
+  (higher) level, as the reference accumulates ZPAPHTC/ZPLUTC in place
+  (cloudsc2ad.F90:1721-1740).  The surface row, which also collects the
+  surface-pressure reads of every level, is finished after the loop.
 
 LREGCL regularisations enter through the shared level body (identity on
 the primal, tangent/adjoint rescale via ``ops.damp_tangent``), so
 ``lregcl=True`` reproduces the reference AD configuration
 (cloudsc2_ad/dwarf_cloudsc.F90:105) and the TL/AD pair stays mutually
 adjoint by construction.
-
-f32 performance path (the -DSINGLE analogue); f64 validation uses
-``jax.jvp``/``jax.vjp`` of the pure-JAX kernel (:mod:`cloudsc2jax.tlad`).
 """
 
 from __future__ import annotations
@@ -60,18 +52,22 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 from ..constants import Params
 from ..physics.cloudsc2 import Cloudsc2Inputs, Cloudsc2Outputs
 from .cloudsc2_kernel import (
+    BLOCK_COLS,
     Cloudsc2BlockedOutputs,
     N_LEVEL_FIELDS,
     N_OUTPUTS,
     _LEVEL_FIELDS,
     _Layout,
+    _check_lphylin,
+    _level_fields,
     _level_physics,
-    _vmem_kw,
+    _level_scalars,
+    nl_sweep,
+    unblock_outputs,
 )
 
 __all__ = [
@@ -82,52 +78,20 @@ __all__ = [
 
 
 def fold_flux_seeds(d_out: Cloudsc2BlockedOutputs, params: Params):
-    """Fold the 10-field output cotangent into 8 blocked seed streams.
+    """Fold the 10-field output cotangent into 8 raw seed streams.
 
     The standard contract exposes rain/snow fluxes twice — as PFPLSL/N
     (shifted by the zero top row) and as enthalpy fluxes
     PFHPSL/N = -RLVTT/RLSTT x flux (cloudsc2.F90:730-735).  Seeding the
-    blocked adjoint with a cotangent defined on those 10 fields therefore
-    scales the flux streams by (1 + L**2); the work-unit convention
-    (adjoint seeded with the TL image itself,
+    raw-stream adjoint with a cotangent defined on those 10 fields
+    therefore scales the flux streams by (1 + L**2); the work-unit
+    convention (adjoint seeded with the TL image itself,
     cloudsc_driver_ad_mod.F90:216-237) uses exactly this fold.
     """
     cst = params.yomcst
     return d_out._replace(
         rfln=d_out.rfln * (1.0 + cst.rlvtt**2),
         sfln=d_out.sfln * (1.0 + cst.rlstt**2),
-    )
-
-_NF = N_LEVEL_FIELDS + 3  # raw level streams + plu(k+1), paph(k), paph(k+1)
-_NF_CHUNK = N_LEVEL_FIELDS + 4  # chunked: plu/plu_nxt, paph/paph_nxt
-
-
-def _chunk_reads(lev_refs, c, chunk, notlast):
-    """Assemble the 17-value per-level field tuple from C-level chunk
-    refs (``_Layout.chunk_operands`` order).
-
-    The k+1 views come from slot ``c+1`` of the same chunk or slot 0 of
-    the neighbour chunk at the boundary; the plu(k+1) read reproduces
-    the single-level path's ``min(k+1, nlev-1)`` index clamp as a
-    ``where`` on ``notlast`` (same selected value, so the two schedules
-    agree exactly)."""
-    f14 = tuple(r[c, 0] for r in lev_refs[:N_LEVEL_FIELDS])
-    plu_ref, plu_nxt, paph_ref, paph_nxt = lev_refs[N_LEVEL_FIELDS:]
-    plu_up = plu_ref[c + 1, 0] if c + 1 < chunk else plu_nxt[0, 0]
-    plu_k1 = jnp.where(notlast, plu_up, plu_ref[c, 0])
-    paph_hi = paph_ref[c + 1, 0] if c + 1 < chunk else paph_nxt[0, 0]
-    return (*f14, plu_k1, paph_ref[c, 0], paph_hi)
-
-
-def _assemble_outputs(lay: _Layout, params: Params, outs,
-                      levels_major: bool) -> Cloudsc2Outputs:
-    """(8 level streams) -> Cloudsc2Outputs with flux/enthalpy assembly
-    (cloudsc2.F90:694-735).  Linear, so valid for tangents too; one
-    shared implementation with the NL wrapper (unblock_outputs)."""
-    from .cloudsc2_kernel import unblock_outputs
-
-    return unblock_outputs(
-        Cloudsc2BlockedOutputs(*outs), params, lay.ncol, levels_major
     )
 
 
@@ -147,126 +111,71 @@ def _seed_streams(lay: _Layout, params: Params, d_outputs: Cloudsc2Outputs,
     d_sfln = d["pfplsn"][1:] - cst.rlstt * d["pfhpsn"][1:]
     seeds = (d["tenl_t"], d["tenl_q"], d["tenl_l"], d["tenl_i"],
              d["pclc"], d["pcovptot"], d_rfln, d_sfln)
-    return tuple(lay.to_blocks(s) for s in seeds)
+    return tuple(lay.padcols(s) for s in seeds)
 
 
 # ------------------------------------------------------------------ TL
-def _decode_fields(lev_refs, enclev_ref):
-    """In-register affine decode of int16-encoded level streams (the
-    byte-diet experiment of DESIGN.md §8 applied to the TL/AD sweeps):
-    f32 refs pass through; int16 refs upcast via the lane-broadcast
-    [scale, offset] rows fetched at the same level index as the streams
-    (convert + FMA per element, hidden behind the halved DMA)."""
-    def dec(i, r):
-        x = r[0, 0]
-        if r.dtype == jnp.float32:
-            return x
-        sc, off = enclev_ref[0, 2 * i, :], enclev_ref[0, 2 * i + 1, :]
-        return x.astype(jnp.float32) * sc + off
+def _tl_kernel(ceta_ref, zscalm_ref, *refs, params: Params, ldrain1d: bool,
+               lregcl: bool, nlev: int, dscale, write_primal: bool):
+    """Fused trajectory+tangent level loop (≙ cloudsc2tl.F90 dual
+    statements); primal and tangent carries in registers.
 
-    return tuple(dec(i, r) for i, r in enumerate(lev_refs))
+    Three output refs past the tangents store the per-level primal
+    carry-in, so a following reverse sweep needs no forward sweep of its
+    own.
 
-
-def _tl_kernel(*refs, params: Params, ldrain1d: bool, lregcl: bool,
-               save_ckpt: bool = False, dscale=None, chunk: int = 1,
-               nlev: int = 0, encoded: bool = False,
-               write_primal: bool = True):
-    """Fused trajectory+tangent level step (≙ cloudsc2tl.F90 dual
-    statements); primal and tangent carries in VMEM scratch.
-
-    ``save_ckpt`` additionally streams out the per-level primal carry-IN
-    (3 streams) so a following reverse sweep can skip its own forward
-    sweep entirely (the fused work unit's byte diet).
-
-    ``dscale`` replaces the 17 tangent streams with in-register
+    ``dscale`` replaces the tangent streams with in-register
     ``dx = dscale * x`` — the canonical driver increments
     (cloudsc_driver_{tl,ad}_mod.F90: 0.01·x) as the reference holds them,
-    block-local temporaries rather than grid-scale arrays.
-
-    ``chunk`` > 1: each grid step covers a (C,1,S,128) block of every
-    stream and runs the level body C times in-register (ascending);
-    levels past ``nlev`` in a partial final chunk are carry-masked and
-    their (Pallas-OOB) writes dropped."""
-    nf = _NF if chunk == 1 else _NF_CHUNK
-    ceta_ref, zscalm_ref, notlast_ref, *rest = refs
-    if encoded:
-        assert chunk == 1 and dscale is not None
-        enclev_ref, *rest = rest
-    lev_refs, rest = rest[:nf], rest[nf:]
+    block-local temporaries rather than grid-scale arrays."""
+    nf = N_LEVEL_FIELDS
+    lev_refs, (plu_ref, paph_ref), rest = refs[:nf], refs[nf:nf + 2], \
+        refs[nf + 2:]
     if dscale is None:
-        dlev_refs, rest = rest[:nf], rest[nf:]
-        ztrpaus_ref, paphsfc_ref, dpaphsfc_ref = rest[:3]
-        rest = rest[3:]
+        dlev_refs, (dplu_ref, dpaph_ref) = rest[:nf], rest[nf:nf + 2]
+        ztrpaus_ref, paphsfc_ref, dpaphsfc_ref = rest[nf + 2:nf + 5]
+        rest = rest[nf + 5:]
     else:
         ztrpaus_ref, paphsfc_ref = rest[:2]
         rest = rest[2:]
     nprim = N_OUTPUTS if write_primal else 0
-    nout = nprim + N_OUTPUTS + (3 if save_ckpt else 0)
-    out_refs = rest[:nout]
-    rfl_s, sfl_s, cov_s, drfl_s, dsfl_s, dcov_s = rest[nout:]
+    prim_refs = rest[:nprim]
+    tan_refs = rest[nprim:nprim + N_OUTPUTS]
+    ckpt_refs = rest[nprim + N_OUTPUTS:]
 
-    k = pl.program_id(1)
+    ztrpaus = ztrpaus_ref[...]
+    cols = (ztrpaus, paphsfc_ref[...])
+    zero = jnp.zeros_like(ztrpaus)
+    # the tropopause eta is piecewise-constant in the inputs — zero
+    # tangent (cloudsc2.F90:314-326; same as the pure-JAX kernel)
+    dsfc = dpaphsfc_ref[...] if dscale is None else dscale * cols[1]
+    dcols = (zero, dsfc)
 
-    @pl.when(k == 0)
-    def _init():
-        for s in (rfl_s, sfl_s, cov_s, drfl_s, dsfl_s, dcov_s):
-            s[...] = jnp.zeros_like(s)
-
-    ztrpaus = ztrpaus_ref[0]
-    cols = (ztrpaus, paphsfc_ref[0])
-    carry = (rfl_s[...], sfl_s[...], cov_s[...])
-    dcarry = (drfl_s[...], dsfl_s[...], dcov_s[...])
-
-    for c in range(chunk):
-        if chunk == 1:
-            scalars = (ceta_ref[k, 0], zscalm_ref[k, 0],
-                       notlast_ref[k, 0] > 0)
-            fields = (_decode_fields(lev_refs, enclev_ref) if encoded
-                      else tuple(r[0, 0] for r in lev_refs))
-            dext = (tuple(r[0, 0] for r in dlev_refs)
-                    if dscale is None else None)
-            valid = None
-        else:
-            lev = k * chunk + c
-            li = jnp.minimum(lev, nlev - 1)
-            notlast = notlast_ref[li, 0] > 0
-            scalars = (ceta_ref[li, 0], zscalm_ref[li, 0], notlast)
-            fields = _chunk_reads(lev_refs, c, chunk, notlast)
-            dext = (_chunk_reads(dlev_refs, c, chunk, notlast)
-                    if dscale is None else None)
-            valid = (lev < nlev) if nlev % chunk else None
-        # the tropopause eta is piecewise-constant in the inputs — zero
-        # tangent (cloudsc2.F90:314-326; same as the pure-JAX kernel)
+    def body(k, carries):
+        carry, dcarry = carries
+        fields = _level_fields(lev_refs, plu_ref, paph_ref, k, nlev)
         if dscale is None:
-            dfields = dext
-            dcols = (jnp.zeros_like(ztrpaus), dpaphsfc_ref[0])
+            dfields = _level_fields(dlev_refs, dplu_ref, dpaph_ref, k, nlev)
         else:
             dfields = tuple(dscale * x for x in fields)
-            dcols = (jnp.zeros_like(ztrpaus), dscale * paphsfc_ref[0])
-        if save_ckpt:
-            for r, v in zip(out_refs[nprim + N_OUTPUTS :], carry):
-                r[c, 0] = v
+        scalars = _level_scalars(ceta_ref, zscalm_ref, k, nlev)
 
-        def f(fl, co, ca, _s=scalars):
-            return _level_physics(params, ldrain1d, _s, fl, co, ca,
+        def f(fl, co, ca):
+            return _level_physics(params, ldrain1d, scalars, fl, co, ca,
                                   lregcl=lregcl)
 
-        (outs, newc), (douts, dnewc) = jax.jvp(
+        (outs, new_carry), (douts, dnew_carry) = jax.jvp(
             f, (fields, cols, carry), (dfields, dcols, dcarry)
         )
-        if write_primal:
-            for r, v in zip(out_refs[:N_OUTPUTS], outs):
-                r[c, 0] = v
-        for r, v in zip(out_refs[nprim : nprim + N_OUTPUTS], douts):
-            r[c, 0] = v
-        if valid is not None:
-            newc = tuple(jnp.where(valid, n, o)
-                         for n, o in zip(newc, carry))
-            dnewc = tuple(jnp.where(valid, n, o)
-                          for n, o in zip(dnewc, dcarry))
-        carry, dcarry = newc, dnewc
-    rfl_s[...], sfl_s[...], cov_s[...] = carry
-    drfl_s[...], dsfl_s[...], dcov_s[...] = dcarry
+        for r, v in zip(prim_refs, outs):
+            r[k] = v
+        for r, v in zip(tan_refs, douts):
+            r[k] = v
+        for r, v in zip(ckpt_refs, carry):
+            r[k] = v
+        return new_carry, dnew_carry
+
+    jax.lax.fori_loop(0, nlev, body, ((zero,) * 3, (zero,) * 3))
 
 
 def cloudsc2_pallas_tl(
@@ -276,25 +185,23 @@ def cloudsc2_pallas_tl(
     *,
     lregcl: bool = False,
     ldrain1d: bool = False,
-    sublanes: int = 64,
+    block_cols: int = BLOCK_COLS,
     levels_major: bool = False,
     blocked: bool = False,
     save_checkpoints: bool = False,
     dscale=None,
-    chunk_levels: int = 1,
     write_primal: bool = True,
-    vmem_limit_bytes: int | None = None,
     interpret: bool = False,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Outputs]:
     """Fused-kernel tangent-linear CLOUDSC2: returns (outputs, d_outputs).
 
-    Drop-in for :func:`cloudsc2jax.tlad.cloudsc2_tl` on the f32 TPU path
+    Drop-in for :func:`cloudsc2jax.tlad.cloudsc2_tl`
     (≙ CLOUDSC2TL, cloudsc2tl.F90:10-24: one sweep, trajectory recomputed
     alongside the linear propagation, nothing stored).
 
-    ``blocked=True``: inputs/increments arrive in kernel layout
-    ``(nlev[,+1], nb, S, 128)`` and both results return as
-    :class:`Cloudsc2BlockedOutputs` — the zero-relayout path.
+    ``blocked=True``: inputs/increments arrive levels-major and padded to
+    a multiple of ``block_cols``, and both results return as
+    :class:`Cloudsc2BlockedOutputs` — the zero-copy path.
 
     ``save_checkpoints=True`` (blocked only) additionally returns the
     3 per-level primal carry-in streams, letting
@@ -303,311 +210,123 @@ def cloudsc2_pallas_tl(
 
     ``dscale`` (with ``d_inputs=None``): the canonical driver increments
     dx = dscale·x are formed in-register — no tangent streams exist in
-    HBM at all, matching the reference drivers' block-local perturbation
-    temporaries (cloudsc_driver_tl_mod.F90:156-171).
-
-    ``chunk_levels`` (C): C levels per grid step — same results, fewer,
-    larger DMA windows (the per-step window-issue-latency experiment,
-    DESIGN.md §8).
+    device memory at all, matching the reference drivers' block-local
+    perturbation temporaries (cloudsc_driver_tl_mod.F90:156-171).
 
     ``write_primal=False`` (blocked only) drops the 8 primal output
-    streams from HBM (trajectory still computed in-register): the
-    reference AD driver never materialises the NL outputs — only δy and
-    x̄ enter the test (cloudsc_driver_ad_mod.F90:160-256) — so the
-    adjoint work unit can shed 8 of the TL sweep's 19 write windows;
+    streams (trajectory still computed in-register): the reference AD
+    driver consumes only δy and x̄ (cloudsc_driver_ad_mod.F90:160-256);
     returns (None, d_outputs[, checkpoints])."""
     if save_checkpoints and not blocked:
         raise ValueError("save_checkpoints requires blocked=True")
-    if not write_primal and not (blocked and chunk_levels == 1):
-        raise ValueError("write_primal=False requires blocked single-level")
+    if not write_primal and not blocked:
+        raise ValueError("write_primal=False requires blocked=True")
     if (d_inputs is None) == (dscale is None):
         raise ValueError("provide exactly one of d_inputs or dscale")
-    if not (bool(params.yrephli.lphylin) or ldrain1d):
-        # the fused level body hardcodes the LPHYLIN dqs/dT branch
-        # (forced .TRUE. upstream, dwarf_cloudsc.F90:107)
-        raise NotImplementedError(
-            "the Pallas TL kernel implements LPHYLIN=True only; use "
-            "cloudsc2jax.tlad for lphylin=False"
-        )
-    lay = _Layout(inputs, params, sublanes, levels_major, blocked=blocked)
+    _check_lphylin(params, ldrain1d, "the Pallas TL kernel")
+    lay = _Layout(inputs, params, block_cols, levels_major, blocked=blocked)
 
-    if chunk_levels == 1:
-        lev_s_list = lay.field_specs(rev=False)
-        out_spec = lev_s_list[0]
-        nsteps = lay.nlev
-        lev_ops = lay.level_operands
-    else:
-        lev_s_list, out_spec, nsteps = lay.chunk_field_specs(
-            chunk_levels, rev=False
-        )
-        lev_ops = lay.chunk_operands
-    _, _, _, col_s, smem_s = lay.specs(rev=False)
-    nprim = N_OUTPUTS if write_primal else 0
-    nout = nprim + N_OUTPUTS + (3 if save_checkpoints else 0)
-
+    col = lay.col_spec()
     if dscale is None:
         d_arrs = {
             k: jnp.asarray(v, lay.dtype) for k, v in d_inputs._asdict().items()
         }
         if not (levels_major or blocked):
             d_arrs = {k: v.T for k, v in d_arrs.items()}
-        in_specs = [smem_s] * 3 + lev_s_list + lev_s_list + [col_s] * 3
-        operands = (
-            *lev_ops(lay.arrs),
-            *lev_ops(d_arrs),
-            lay.ztrpaus_b, lay.paphsfc_b,
-            lay.colblocks(d_arrs["paph"][lay.nlev]),
-        )
-        nstreams = 2 * _NF
+        d_arrs = {k: lay.padcols(v) for k, v in d_arrs.items()}
+        in_specs = lay.stream_specs() * 2 + [col] * 3
+        operands = (*lay.level_operands(lay.arrs),
+                    *lay.level_operands(d_arrs),
+                    lay.ztrpaus, lay.paphsfc, d_arrs["paph"][lay.nlev])
     else:
-        in_specs = [smem_s] * 3 + lev_s_list + [col_s] * 2
-        operands = (
-            *lev_ops(lay.arrs), lay.ztrpaus_b, lay.paphsfc_b
-        )
-        nstreams = _NF
+        in_specs = lay.stream_specs() + [col] * 2
+        operands = (*lay.level_operands(lay.arrs), lay.ztrpaus, lay.paphsfc)
 
+    nprim = N_OUTPUTS if write_primal else 0
+    nout = nprim + N_OUTPUTS + (3 if save_checkpoints else 0)
     kernel = functools.partial(
         _tl_kernel, params=params, ldrain1d=ldrain1d, lregcl=lregcl,
-        save_ckpt=save_checkpoints,
-        dscale=None if dscale is None else float(dscale),
-        chunk=chunk_levels, nlev=lay.nlev, write_primal=write_primal,
+        nlev=lay.nlev, dscale=None if dscale is None else float(dscale),
+        write_primal=write_primal,
     )
-    cost = pl.CostEstimate(
-        flops=2 * 292 * lay.nlev * lay.nb * lay.bc,
-        bytes_accessed=(nstreams + nout)
-        * lay.nlev * lay.nb * lay.bc * lay.dtype.itemsize,
-        transcendentals=2 * 10 * lay.nlev * lay.nb * lay.bc,
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid=(lay.nb, nsteps),
-        in_specs=in_specs,
-        out_specs=[out_spec] * nout,
-        out_shape=[lay.out_shape()] * nout,
-        scratch_shapes=lay.scratch(6),
-        cost_estimate=cost,
-        interpret=interpret,
-        **_vmem_kw(vmem_limit_bytes),
-    )(*lay.scalar_args(), *operands)
+    outs = lay.call(kernel, "tl", in_specs, [lay.stream_spec()] * nout,
+                    [lay.out_shape()] * nout, operands, interpret)
     if blocked:
         out_b = (Cloudsc2BlockedOutputs(*outs[:N_OUTPUTS]) if write_primal
                  else None)
-        dout_b = Cloudsc2BlockedOutputs(*outs[nprim : nprim + N_OUTPUTS])
+        dout_b = Cloudsc2BlockedOutputs(*outs[nprim:nprim + N_OUTPUTS])
         if save_checkpoints:
-            return out_b, dout_b, tuple(outs[nprim + N_OUTPUTS :])
+            return out_b, dout_b, tuple(outs[nprim + N_OUTPUTS:])
         return out_b, dout_b
-    out = _assemble_outputs(lay, params, outs[:N_OUTPUTS], levels_major)
-    d_out = _assemble_outputs(lay, params, outs[N_OUTPUTS:], levels_major)
+    out = unblock_outputs(Cloudsc2BlockedOutputs(*outs[:N_OUTPUTS]), params,
+                          lay.ncol, levels_major)
+    d_out = unblock_outputs(Cloudsc2BlockedOutputs(*outs[N_OUTPUTS:]),
+                            params, lay.ncol, levels_major)
     return out, d_out
 
 
 # ------------------------------------------------------------------ AD
-def _fwd_ckpt_kernel(*refs, params: Params, ldrain1d: bool,
-                     chunk: int = 1, nlev: int = 0):
-    """NL stream schedule + per-level carry-IN checkpoints (the minimal
-    trajectory store: ≙ cloudsc2ad.F90's forward sweep, with its ~40
-    (KLON,KLEV) arrays reduced to the 3-variable carry)."""
-    nf = _NF if chunk == 1 else _NF_CHUNK
-    ceta_ref, zscalm_ref, notlast_ref, *rest = refs
-    lev_refs, rest = rest[:nf], rest[nf:]
-    ztrpaus_ref, paphsfc_ref = rest[:2]
-    out_refs = rest[2 : 2 + N_OUTPUTS]
-    ckpt_refs = rest[2 + N_OUTPUTS : 5 + N_OUTPUTS]
-    rfl_s, sfl_s, cov_s = rest[5 + N_OUTPUTS :]
-
-    k = pl.program_id(1)
-
-    @pl.when(k == 0)
-    def _init():
-        for s in (rfl_s, sfl_s, cov_s):
-            s[...] = jnp.zeros_like(s)
-
-    cols = (ztrpaus_ref[0], paphsfc_ref[0])
-    carry = (rfl_s[...], sfl_s[...], cov_s[...])
-    for c in range(chunk):
-        if chunk == 1:
-            scalars = (ceta_ref[k, 0], zscalm_ref[k, 0],
-                       notlast_ref[k, 0] > 0)
-            fields = tuple(r[0, 0] for r in lev_refs)
-            valid = None
-        else:
-            lev = k * chunk + c
-            li = jnp.minimum(lev, nlev - 1)
-            notlast = notlast_ref[li, 0] > 0
-            scalars = (ceta_ref[li, 0], zscalm_ref[li, 0], notlast)
-            fields = _chunk_reads(lev_refs, c, chunk, notlast)
-            valid = (lev < nlev) if nlev % chunk else None
-        for r, v in zip(ckpt_refs, carry):  # checkpoint the carry-in
-            r[c, 0] = v
-        outs, newc = _level_physics(
-            params, ldrain1d, scalars, fields, cols, carry
-        )
-        for r, v in zip(out_refs, outs):
-            r[c, 0] = v
-        if valid is not None:
-            newc = tuple(jnp.where(valid, n, o)
-                         for n, o in zip(newc, carry))
-        carry = newc
-    rfl_s[...], sfl_s[...], cov_s[...] = carry
-
-
-def _rev_kernel(*refs, params: Params, ldrain1d: bool, lregcl: bool,
-                nlev: int, seed_scales=None, chunk: int = 1,
-                encoded: bool = False, inplace_scatter: bool = False):
+def _rev_kernel(ceta_ref, zscalm_ref, *refs, params: Params, ldrain1d: bool,
+                lregcl: bool, nlev: int, seed_scales):
     """Reverse sweep (≙ cloudsc2ad.F90:934-1668, DO JK=KLEV,1,-1): the
-    grid's level axis runs backwards via the reversed index maps; the
-    level trajectory is recomputed from raw fields + carry checkpoint and
-    transposed in-register with jax.vjp; adjoint carry in VMEM scratch.
+    level loop runs downwards; each level's trajectory is recomputed from
+    the raw fields + carry checkpoint and transposed with jax.vjp; the
+    adjoint carry is a loop carry.
 
-    ``inplace_scatter`` (chunk==1 only, the production schedule):
-    accumulate the shifted-view adjoints onto their SOURCE buffers inside
-    the kernel — exactly as the reference adjoint accumulates
-    ZPAPHTC/ZPLUTC in place (cloudsc2ad.F90:1721-1740) — instead of
-    emitting 17 per-step streams for XLA to concatenate+add (the 2.53 GB
-    / 14.7%-of-unit-bytes glue measured in ROOFLINE.md §3).  Outputs
-    become 14 plain adjoint streams + ``d_plu`` (nlev) + ``d_paph``
-    (nlev+1), written via shifted output index maps: the step at
-    physical level kr writes ``d_paph[kr+1] = hi(kr) + lo(kr+1)`` with
-    ``lo(kr+1)`` carried one step in VMEM scratch, and ``d_plu[kr+1] =
-    d_plu_k1(kr)``; one extra FLUSH grid step (k == nlev) writes row 0
-    (``d_paph[0] = lo(0)``, ``d_plu[0] = 0``).  Every other index map is
-    clamped at the flush step so it revisits the previous step's block —
-    Mosaic elides those DMAs and the untouched output buffers flush with
-    the previous step's values, so the extra step costs ~2 windows.
-    The surface row still leaves as the small col-shaped ``dpaphsfc``
-    (its Σ over levels completes only at the LAST step, after slot nlev
-    was already written) — one single-row XLA add remains downstream.
+    Outputs: the 14 plain level-field adjoints, ``d_plu`` (nlev rows) and
+    ``d_paph`` (nlev+1 rows), written whole — the shifted reads become
+    plain row writes one level up (module docstring)."""
+    nf = N_LEVEL_FIELDS
+    lev_refs, (plu_ref, paph_ref) = refs[:nf], refs[nf:nf + 2]
+    ckpt_refs = refs[nf + 2:nf + 5]
+    seed_refs = refs[nf + 5:nf + 5 + N_OUTPUTS]
+    ztrpaus_ref, paphsfc_ref = refs[nf + 5 + N_OUTPUTS:nf + 7 + N_OUTPUTS]
+    dlev_refs = refs[nf + 7 + N_OUTPUTS:2 * nf + 7 + N_OUTPUTS]
+    dplu_ref, dpaph_ref = refs[2 * nf + 7 + N_OUTPUTS:]
 
-    ``chunk`` > 1: C levels per grid step, processed DESCENDING
-    in-register; the adjoint output convention (17 shifted-view streams,
-    slot = physical level) is unchanged, so the XLA shift-scatter
-    assembly downstream is identical."""
-    nf = _NF if chunk == 1 else _NF_CHUNK
-    ceta_ref, zscalm_ref, notlast_ref, *rest = refs
-    if encoded:
-        assert chunk == 1
-        enclev_ref, *rest = rest
-    lev_refs, rest = rest[:nf], rest[nf:]
-    ckpt_refs, rest = rest[:3], rest[3:]
-    seed_refs, rest = rest[:N_OUTPUTS], rest[N_OUTPUTS:]
-    ztrpaus_ref, paphsfc_ref = rest[:2]
-    if inplace_scatter:
-        assert chunk == 1
-        dout_refs = rest[2 : 2 + N_LEVEL_FIELDS]
-        dplu_ref, dpaph_ref, dpaphsfc_ref = rest[
-            2 + N_LEVEL_FIELDS : 5 + N_LEVEL_FIELDS
-        ]
-        drfl_s, dsfl_s, dcov_s, dlo_s = rest[5 + N_LEVEL_FIELDS :]
-    else:
-        dout_refs = rest[2 : 2 + _NF]
-        dpaphsfc_ref = rest[2 + _NF]
-        drfl_s, dsfl_s, dcov_s = rest[3 + _NF :]
-        dlo_s = None
+    cols = (ztrpaus_ref[...], paphsfc_ref[...])
+    zero = jnp.zeros_like(cols[0])
 
-    k = pl.program_id(1)
-    nch = -(-nlev // chunk)
+    def body(i, carries):
+        dcarry, dlo, dsfc, dtop = carries
+        kr = nlev - 1 - i  # physical level of this step
+        fields = _level_fields(lev_refs, plu_ref, paph_ref, kr, nlev)
+        carry_in = tuple(r[kr] for r in ckpt_refs)
+        scalars = _level_scalars(ceta_ref, zscalm_ref, kr, nlev)
 
-    @pl.when(k == 0)
-    def _init():
-        for s in (drfl_s, dsfl_s, dcov_s):
-            s[...] = jnp.zeros_like(s)
-        dpaphsfc_ref[0] = jnp.zeros_like(dpaphsfc_ref[0])
-        if dlo_s is not None:
-            dlo_s[...] = jnp.zeros_like(dlo_s)
-
-    if inplace_scatter:
-        @pl.when(k < nlev)
-        def _scatter_step():
-            kr = nlev - 1 - k  # physical level of this step
-            scalars = (ceta_ref[kr, 0], zscalm_ref[kr, 0],
-                       notlast_ref[kr, 0] > 0)
-            fields = (_decode_fields(lev_refs, enclev_ref) if encoded
-                      else tuple(r[0, 0] for r in lev_refs))
-            carry_in = tuple(r[0, 0] for r in ckpt_refs)
-
-            def f(fl, co, ca, _s=scalars):
-                return _level_physics(params, ldrain1d, _s, fl, co, ca,
-                                      lregcl=lregcl)
-
-            _, vjp_fn = jax.vjp(
-                f, fields, (ztrpaus_ref[0], paphsfc_ref[0]), carry_in
-            )
-            seeds = tuple(r[0, 0] for r in seed_refs)
-            if seed_scales is not None:
-                srfl, ssfl = seed_scales
-                seeds = seeds[:6] + (seeds[6] * srfl, seeds[7] * ssfl)
-            dcarry = (drfl_s[...], dsfl_s[...], dcov_s[...])
-            dfields, dcols, dcarry_in = vjp_fn((seeds, dcarry))
-
-            for r, v in zip(dout_refs, dfields[:N_LEVEL_FIELDS]):
-                r[0, 0] = v
-            # slot kr+1 via the shifted output maps: d_plu[kr+1] =
-            # d(plu read at kr); d_paph[kr+1] = hi(kr) + carried lo(kr+1)
-            # (at kr = nlev-1 the clamped d_plu write lands on slot
-            # nlev-1 and is overwritten by the next step — its value is
-            # the exactly-zero cotangent of the not_last-masked read)
-            dplu_ref[0, 0] = dfields[N_LEVEL_FIELDS]
-            dpaph_ref[0, 0] = dfields[N_LEVEL_FIELDS + 2] + dlo_s[...]
-            dlo_s[...] = dfields[N_LEVEL_FIELDS + 1]
-            dpaphsfc_ref[0] = dpaphsfc_ref[0] + dcols[1]
-            # d_ztrpaus (dcols[0]) is exactly zero (stop-gradient max)
-            drfl_s[...], dsfl_s[...], dcov_s[...] = dcarry_in
-
-        @pl.when(k == nlev)
-        def _flush():
-            # row 0: plu level 0 is never read as k+1; paph row 0 is the
-            # lo(0) adjoint carried from the last compute step
-            dplu_ref[0, 0] = jnp.zeros_like(dplu_ref[0, 0])
-            dpaph_ref[0, 0] = dlo_s[...]
-        return
-
-    cols = (ztrpaus_ref[0], paphsfc_ref[0])
-    dcarry = (drfl_s[...], dsfl_s[...], dcov_s[...])
-    dsfc = jnp.zeros_like(paphsfc_ref[0])
-    for c in reversed(range(chunk)):
-        if chunk == 1:
-            kr = nlev - 1 - k  # physical level of this step
-            scalars = (ceta_ref[kr, 0], zscalm_ref[kr, 0],
-                       notlast_ref[kr, 0] > 0)
-            fields = (_decode_fields(lev_refs, enclev_ref) if encoded
-                      else tuple(r[0, 0] for r in lev_refs))
-            valid = None
-        else:
-            lev = (nch - 1 - k) * chunk + c
-            li = jnp.minimum(lev, nlev - 1)
-            notlast = notlast_ref[li, 0] > 0
-            scalars = (ceta_ref[li, 0], zscalm_ref[li, 0], notlast)
-            fields = _chunk_reads(lev_refs, c, chunk, notlast)
-            valid = (lev < nlev) if nlev % chunk else None
-        carry_in = tuple(r[c, 0] for r in ckpt_refs)
-
-        def f(fl, co, ca, _s=scalars):
-            return _level_physics(params, ldrain1d, _s, fl, co, ca,
+        def f(fl, co, ca):
+            return _level_physics(params, ldrain1d, scalars, fl, co, ca,
                                   lregcl=lregcl)
 
         _, vjp_fn = jax.vjp(f, fields, cols, carry_in)
-        seeds = tuple(r[c, 0] for r in seed_refs)
+        seeds = tuple(r[kr] for r in seed_refs)
         if seed_scales is not None:
-            # flux-seed fold done in-register on load (saves the
-            # standalone XLA pass between the TL and AD custom calls;
-            # see fold_flux_seeds for the (1+L^2) derivation)
+            # flux-seed fold done in-register on load (see
+            # fold_flux_seeds for the (1+L^2) derivation)
             srfl, ssfl = seed_scales
             seeds = seeds[:6] + (seeds[6] * srfl, seeds[7] * ssfl)
         dfields, dcols, dcarry_in = vjp_fn((seeds, dcarry))
 
-        for r, v in zip(dout_refs, dfields):
-            r[c, 0] = v
-        if valid is not None:
-            dcarry_in = tuple(jnp.where(valid, n, o)
-                              for n, o in zip(dcarry_in, dcarry))
-            dsfc = dsfc + jnp.where(valid, dcols[1], 0.0)
-        else:
-            dsfc = dsfc + dcols[1]
-        # d_ztrpaus (dcols[0]) propagates to exactly zero through the
-        # stop-gradient masked max (_tropopause_eta_lm) — drop.
-        dcarry = dcarry_in
-    drfl_s[...], dsfl_s[...], dcov_s[...] = dcarry
-    dpaphsfc_ref[0] = dpaphsfc_ref[0] + dsfc
+        for r, v in zip(dlev_refs, dfields[:nf]):
+            r[kr] = v
+        d_plu_k1, d_lo, d_hi = dfields[nf:]
+        # plu read at level kr+1: at kr = nlev-1 the read is clamped onto
+        # row nlev-1 and its cotangent is exactly zero (llo1 is masked by
+        # not_last); the next step writes that row with its real value
+        dplu_ref[jnp.minimum(kr + 1, nlev - 1)] = d_plu_k1
+        dpaph_ref[kr + 1] = d_hi + dlo
+        # d_ztrpaus (dcols[0]) is exactly zero (stop-gradient masked max)
+        dtop = jnp.where(i == 0, d_hi, dtop)
+        return dcarry_in, d_lo, dsfc + dcols[1], dtop
+
+    _, dlo, dsfc, dtop = jax.lax.fori_loop(
+        0, nlev, body, ((zero,) * 3, zero, zero, zero)
+    )
+    # plu level 0 is never read as k+1; paph row 0 is read only as lo(0);
+    # the surface row also collects every level's surface-pressure read
+    dplu_ref[0] = zero
+    dpaph_ref[0] = dlo
+    dpaph_ref[nlev] = dtop + dsfc
 
 
 def cloudsc2_pallas_ad(
@@ -617,39 +336,27 @@ def cloudsc2_pallas_ad(
     *,
     lregcl: bool = True,
     ldrain1d: bool = False,
-    sublanes: int = 64,
+    block_cols: int = BLOCK_COLS,
     levels_major: bool = False,
     blocked: bool = False,
     checkpoints=None,
     fold_seeds: bool = False,
-    chunk_levels: int = 1,
-    inplace_scatter: bool | None = None,
-    vmem_limit_bytes: int | None = None,
     interpret: bool = False,
 ) -> Tuple[Cloudsc2Outputs, Cloudsc2Inputs]:
     """Fused-kernel adjoint CLOUDSC2: returns (outputs, input_adjoints).
 
-    ``inplace_scatter`` (default: on for ``chunk_levels == 1``): the
-    reverse kernel accumulates the plu(k+1)/paph(k)/paph(k+1) shifted-
-    view adjoints onto their source buffers in place (≙ the reference
-    adjoint's in-place ZPAPHTC/ZPLUTC accumulation,
-    cloudsc2ad.F90:1721-1740) — see :func:`_rev_kernel`.  Off: the
-    round-2..4 convention (17 shifted-view streams assembled by XLA
-    concatenate+add passes — the measured 14.7%-of-unit-bytes glue,
-    ROOFLINE.md §3), kept for A/B (tools/kernel_ab.py ``xscat:<S>``).
+    Drop-in for :func:`cloudsc2jax.tlad.cloudsc2_ad`
+    (≙ CLOUDSC2AD, cloudsc2ad.F90:177-202): forward checkpoint sweep +
+    reverse accumulation sweep, seeded with output adjoints.
+
+    ``blocked=True``: inputs arrive levels-major and padded, ``d_outputs``
+    is a :class:`Cloudsc2BlockedOutputs` cotangent (use
+    :func:`fold_flux_seeds` if it represents the 10-field contract), and
+    (outputs, input_adjoints) return padded levels-major.
 
     ``fold_seeds=True`` (blocked only) applies the
     :func:`fold_flux_seeds` (1+L²) flux scaling in-register on seed load
     instead of as a separate XLA pass.
-
-    Drop-in for :func:`cloudsc2jax.tlad.cloudsc2_ad` on the f32 TPU path
-    (≙ CLOUDSC2AD, cloudsc2ad.F90:177-202): forward checkpoint sweep +
-    reverse accumulation sweep, seeded with output adjoints.
-
-    ``blocked=True``: inputs arrive in kernel layout, ``d_outputs`` is a
-    :class:`Cloudsc2BlockedOutputs` cotangent (use
-    :func:`fold_flux_seeds` if it represents the 10-field contract), and
-    (outputs, input_adjoints) return blocked.
 
     ``checkpoints`` (blocked only): per-level primal carry-in streams
     from ``cloudsc2_pallas_tl(save_checkpoints=True)`` — the forward
@@ -659,159 +366,49 @@ def cloudsc2_pallas_ad(
         raise ValueError("external checkpoints require blocked=True")
     if fold_seeds and not blocked:
         raise ValueError("fold_seeds requires blocked=True")
-    if inplace_scatter is None:
-        inplace_scatter = chunk_levels == 1
-    if inplace_scatter and chunk_levels != 1:
-        raise ValueError("inplace_scatter requires chunk_levels == 1 "
-                         "(C-level chunk blocks cannot be written at a "
-                         "one-level offset — block index maps are "
-                         "block-aligned)")
-    if not (bool(params.yrephli.lphylin) or ldrain1d):
-        # see cloudsc2_pallas_tl — refuse rather than silently diverge
-        raise NotImplementedError(
-            "the Pallas AD kernels implement LPHYLIN=True only; use "
-            "cloudsc2jax.tlad for lphylin=False"
-        )
-    lay = _Layout(inputs, params, sublanes, levels_major, blocked=blocked)
-    if chunk_levels == 1:
-        lev_fwd = lay.field_specs(rev=False)
-        lev_rev = lay.field_specs(rev=True)
-        fwd_spec, rev_spec = lev_fwd[0], lev_rev[0]
-        nsteps = lay.nlev
-        operands = lay.level_operands(lay.arrs)
-    else:
-        lev_fwd, fwd_spec, nsteps = lay.chunk_field_specs(
-            chunk_levels, rev=False
-        )
-        lev_rev, rev_spec, _ = lay.chunk_field_specs(chunk_levels, rev=True)
-        operands = lay.chunk_operands(lay.arrs)
-    _, _, _, col_s, smem_s = lay.specs(rev=False)
+    _check_lphylin(params, ldrain1d, "the Pallas AD kernels")
+    lay = _Layout(inputs, params, block_cols, levels_major, blocked=blocked)
 
     if checkpoints is not None:
         outs, ckpts = None, tuple(checkpoints)
     else:
-        # ---- forward sweep with carry checkpoints
-        fwd = pl.pallas_call(
-            functools.partial(_fwd_ckpt_kernel, params=params,
-                              ldrain1d=ldrain1d, chunk=chunk_levels,
-                              nlev=lay.nlev),
-            grid=(lay.nb, nsteps),
-            in_specs=[smem_s] * 3 + lev_fwd + [col_s] * 2,
-            out_specs=[fwd_spec] * (N_OUTPUTS + 3),
-            out_shape=[lay.out_shape()] * (N_OUTPUTS + 3),
-            scratch_shapes=lay.scratch(3),
-            cost_estimate=pl.CostEstimate(
-                flops=292 * lay.nlev * lay.nb * lay.bc,
-                bytes_accessed=(_NF + N_OUTPUTS + 3)
-                * lay.nlev * lay.nb * lay.bc * lay.dtype.itemsize,
-                transcendentals=10 * lay.nlev * lay.nb * lay.bc,
-            ),
-            interpret=interpret,
-            **_vmem_kw(vmem_limit_bytes),
-        )(*lay.scalar_args(), *operands, lay.ztrpaus_b, lay.paphsfc_b)
+        fwd = nl_sweep(lay, params, ldrain1d=ldrain1d, save_checkpoints=True,
+                       interpret=interpret)
         outs, ckpts = fwd[:N_OUTPUTS], fwd[N_OUTPUTS:]
 
-    # ---- reverse sweep
     if blocked:
         seeds = tuple(jnp.asarray(s, lay.dtype) for s in d_outputs)
     else:
         seeds = _seed_streams(lay, params, d_outputs, levels_major)
-    rev_kernel = functools.partial(
+    kernel = functools.partial(
         _rev_kernel, params=params, ldrain1d=ldrain1d, lregcl=lregcl,
-        nlev=lay.nlev, chunk=chunk_levels, inplace_scatter=inplace_scatter,
+        nlev=lay.nlev,
         seed_scales=(
             (1.0 + float(params.yomcst.rlvtt) ** 2,
              1.0 + float(params.yomcst.rlstt) ** 2)
             if fold_seeds else None
         ),
     )
-    if inplace_scatter:
-        # shifted-output schedule + one flush step (see _rev_kernel):
-        # 14 plain adjoint streams + d_plu + d_paph leave assembled
-        lev_rev_f, plain_f, dplu_s, dpaph_s = lay.flush_field_specs()
-        rev = pl.pallas_call(
-            rev_kernel,
-            grid=(lay.nb, lay.nlev + 1),
-            in_specs=[smem_s] * 3 + lev_rev_f + [plain_f] * 3
-            + [plain_f] * N_OUTPUTS + [col_s] * 2,
-            out_specs=[plain_f] * N_LEVEL_FIELDS
-            + [dplu_s, dpaph_s, col_s],
-            out_shape=[lay.out_shape()] * (N_LEVEL_FIELDS + 1)
-            + [lay.paph_shape(), lay.col_shape()],
-            scratch_shapes=lay.scratch(4),
-            cost_estimate=pl.CostEstimate(
-                flops=3 * 292 * lay.nlev * lay.nb * lay.bc,
-                bytes_accessed=(2 * _NF + N_OUTPUTS + 3)
-                * lay.nlev * lay.nb * lay.bc * lay.dtype.itemsize,
-                transcendentals=2 * 10 * lay.nlev * lay.nb * lay.bc,
-            ),
-            interpret=interpret,
-            **_vmem_kw(vmem_limit_bytes),
-        )(*lay.scalar_args(), *operands, *ckpts, *seeds,
-          lay.ztrpaus_b, lay.paphsfc_b)
-        dlev = [lay.from_blocks(x) for x in rev[: N_LEVEL_FIELDS + 2]]
-        d = dict(zip(_LEVEL_FIELDS, dlev[:N_LEVEL_FIELDS]))
-        d["plu"] = dlev[N_LEVEL_FIELDS]
-        if blocked:
-            dpaphsfc = rev[N_LEVEL_FIELDS + 2]  # (nb, S, 128)
-        else:
-            dpaphsfc = rev[N_LEVEL_FIELDS + 2].reshape(
-                lay.nb * lay.bc)[: lay.ncol]
-        # the only XLA pass left on the adjoint contract: the surface-row
-        # add (Σ over levels of the pap/paph_sfc read completes only at
-        # the last reverse step, after slot nlev was already written)
-        d["paph"] = dlev[N_LEVEL_FIELDS + 1].at[lay.nlev].add(dpaphsfc)
-    else:
-        rev = pl.pallas_call(
-            rev_kernel,
-            grid=(lay.nb, nsteps),
-            in_specs=[smem_s] * 3 + lev_rev + [rev_spec] * 3
-            + [rev_spec] * N_OUTPUTS + [col_s] * 2,
-            out_specs=[rev_spec] * _NF + [col_s],
-            out_shape=[lay.out_shape()] * _NF + [lay.col_shape()],
-            scratch_shapes=lay.scratch(3),
-            cost_estimate=pl.CostEstimate(
-                flops=3 * 292 * lay.nlev * lay.nb * lay.bc,
-                bytes_accessed=(2 * _NF + N_OUTPUTS + 4)
-                * lay.nlev * lay.nb * lay.bc * lay.dtype.itemsize,
-                transcendentals=2 * 10 * lay.nlev * lay.nb * lay.bc,
-            ),
-            interpret=interpret,
-            **_vmem_kw(vmem_limit_bytes),
-        )(*lay.scalar_args(), *operands, *ckpts, *seeds,
-          lay.ztrpaus_b, lay.paphsfc_b)
-
-        dlev = [lay.from_blocks(x) for x in rev[:_NF]]
-        d_plu_k1, d_paph_lo, d_paph_hi = dlev[N_LEVEL_FIELDS:]
-        if blocked:
-            dpaphsfc = rev[_NF]  # (nb, S, 128)
-            zrow = jnp.zeros((1,) + d_plu_k1.shape[1:], lay.dtype)
-        else:
-            dpaphsfc = rev[_NF].reshape(lay.nb * lay.bc)[: lay.ncol]
-            zrow = jnp.zeros((1, lay.ncol), lay.dtype)
-        d = dict(zip(_LEVEL_FIELDS, dlev[:N_LEVEL_FIELDS]))
-        # scatter the shifted-view adjoints back onto their source
-        # buffers: plu(k+1) reads mean d_plu[k] = d_plu_k1[k-1] (level 0
-        # is never read as k+1; the clamped last-level read has zero
-        # cotangent since llo1 is masked by not_last); paph is read as
-        # lo(k), hi(k+1) and sfc(nlev).
-        d["plu"] = jnp.concatenate([zrow, d_plu_k1[:-1]], axis=0)
-        d["paph"] = (
-            jnp.concatenate([d_paph_lo, zrow], axis=0)
-            + jnp.concatenate([zrow, d_paph_hi], axis=0)
-        ).at[lay.nlev].add(dpaphsfc)
-
-    d_in = Cloudsc2Inputs(
-        paph=d["paph"], pap=d["pap"], pq=d["pq"], pqs=d["pqs"], pt=d["pt"],
-        pl=d["pl"], pi=d["pi"], plude=d["plude"], plu=d["plu"],
-        pmfu=d["pmfu"], pmfd=d["pmfd"], ten_t=d["ten_t"], ten_q=d["ten_q"],
-        ten_l=d["ten_l"], ten_i=d["ten_i"], psupsat=d["psupsat"],
+    lev = lay.stream_spec()
+    rev = lay.call(
+        kernel, "ad",
+        lay.stream_specs() + [lev] * (3 + N_OUTPUTS) + [lay.col_spec()] * 2,
+        [lev] * (N_LEVEL_FIELDS + 1) + [lay.stream_spec(lay.nlev + 1)],
+        [lay.out_shape()] * (N_LEVEL_FIELDS + 1)
+        + [lay.out_shape(lay.nlev + 1)],
+        (*lay.level_operands(lay.arrs), *ckpts, *seeds, lay.ztrpaus,
+         lay.paphsfc),
+        interpret,
     )
+    d = {name: lay.from_blocks(x)
+         for name, x in zip((*_LEVEL_FIELDS, "plu", "paph"), rev)}
+    d_in = Cloudsc2Inputs(**d)
     if blocked:
         if outs is None:
             return None, d_in
         return Cloudsc2BlockedOutputs(*outs), d_in
-    out = _assemble_outputs(lay, params, outs, levels_major)
+    out = unblock_outputs(Cloudsc2BlockedOutputs(*outs), params, lay.ncol,
+                          levels_major)
     if not levels_major:
         d_in = Cloudsc2Inputs(*(x.T for x in d_in))
     return out, d_in

@@ -1,12 +1,12 @@
 """CLOUDSC2 — cloud cover and large-scale condensation/precipitation.
 
-TPU-native re-design of the reference nonlinear kernel
+JAX re-design of the reference nonlinear kernel
 ``src/cloudsc2_nl/cloudsc2.F90`` (742 lines of Fortran).  Design:
 
 * Arrays are ``(ncol, nlev)`` with grid columns as the leading — and, under
   ``pjit``, the *sharded* — axis.  The reference's NPROMA blocking
-  (cloudsc_driver_mod.F90:73-119) is unnecessary: XLA tiles the column axis
-  onto the VPU lanes itself, and the Pallas kernel
+  (cloudsc_driver_mod.F90:73-119) is unnecessary: XLA vectorises the
+  column axis itself, and the Pallas kernel
   (:mod:`cloudsc2jax.pallas.cloudsc2_kernel`) chooses its own block size.
 * The vertical dependence — precipitation fluxes ZRFL/ZSFL and the
   maximum-overlap precipitation fraction ZCOVPTOT carried level-to-level

@@ -1,6 +1,6 @@
 """Saturation adjustment (Newton iteration on the saturation curve).
 
-TPU-native re-design of ``src/cloudsc2_nl/cuadjtqs.F90`` (KCALL branches at
+JAX re-design of ``src/cloudsc2_nl/cuadjtqs.F90`` (KCALL branches at
 :212/:132/:172/:246).  Two Newton iterations adjust (T, q) onto the
 saturation curve; the liquid-vs-ice constant set is chosen *once* from the
 initial temperature (cuadjtqs.F90:118-130) and reused for both iterations.

@@ -1,6 +1,6 @@
 """Saturation specific humidity.
 
-TPU-native re-design of the reference kernel ``src/cloudsc2_nl/satur.F90``
+JAX re-design of the reference kernel ``src/cloudsc2_nl/satur.F90``
 (three identical copies live under cloudsc2_{nl,tl,ad}).  Arrays are
 ``(..., nlev)`` with grid columns leading; the whole computation is
 elementwise and differentiable, so TL/AD come from ``jax.jvp``/``jax.vjp``.

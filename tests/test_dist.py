@@ -21,6 +21,46 @@ def mesh():
     return dist.column_mesh()
 
 
+def _no_launcher_rank(monkeypatch):
+    for var in dist.LOCAL_RANK_VARS:
+        monkeypatch.delenv(var, raising=False)
+
+
+@pytest.mark.parametrize("process_id,ncards,card", [
+    (0, 4, 0), (3, 4, 3), (5, 4, 1), (7, 8, 7), (2, 0, None)])
+def test_local_card_is_the_rank_on_its_host(monkeypatch, process_id, ncards,
+                                            card):
+    """Without a launcher's local rank, the global rank modulo the cards
+    on the host: rank 5 of two 4-card hosts is card 1 of the second."""
+    _no_launcher_rank(monkeypatch)
+    monkeypatch.setattr("cloudsc2jax.device.cards_on_host", lambda: ncards)
+    assert dist.local_card(process_id) == card
+
+
+@pytest.mark.parametrize("var", dist.LOCAL_RANK_VARS)
+def test_local_card_takes_the_launchers_local_rank(monkeypatch, var):
+    _no_launcher_rank(monkeypatch)
+    monkeypatch.setattr("cloudsc2jax.device.cards_on_host", lambda: 4)
+    monkeypatch.setenv(var, "2")
+    assert dist.local_card(5) == 2
+
+
+@pytest.mark.parametrize("ncards,ids", [(4, [1]), (0, None)])
+def test_initialize_binds_one_card(monkeypatch, ncards, ids):
+    """A multi-process launch binds each process to its card; a single
+    process initialises nothing."""
+    _no_launcher_rank(monkeypatch)
+    monkeypatch.setattr("cloudsc2jax.device.cards_on_host", lambda: ncards)
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    dist.initialize("localhost:1", num_processes=1, process_id=0)
+    assert calls == []
+    dist.initialize("localhost:1", num_processes=8, process_id=5)
+    assert calls == [dict(coordinator_address="localhost:1", num_processes=8,
+                          process_id=5, local_device_ids=ids)]
+
+
 def test_rank_columns_reference_split():
     # (NGPTOTG-1)/NUMPROC+1 per rank, remainder on the last
     # (dwarf_cloudsc.F90:66-69)
@@ -127,7 +167,7 @@ def test_shard_map_pallas_nl_matches_single_device(mesh):
 
     st = Cloudsc2State.synthetic(ngptot=1024, nlev=23)
     inputs = st.kernel_inputs(dtype=np.float32)
-    fn = partial(cloudsc2_pallas, params=st.params, sublanes=1, interpret=True)
+    fn = partial(cloudsc2_pallas, params=st.params, interpret=True)
     sharded = dist.shard_inputs(inputs, mesh)
     out = jax.jit(dist.shard_map_columns(fn, mesh, sharded))(sharded)
     ref = fn(inputs)
@@ -163,12 +203,11 @@ def test_run_tlad_pallas_mesh(mesh):
     inputs = st.kernel_inputs(dtype=np.float32)
     sharded = dist.shard_inputs(inputs, mesh)
     out, dout, adj = run_tlad(
-        sharded, st.params, lregcl=True, backend="pallas", sublanes=1,
-        mesh=mesh, interpret=True,
+        sharded, st.params, lregcl=True, backend="pallas", mesh=mesh,
+        interpret=True,
     )
     ref_out, ref_dout, ref_adj = run_tlad(
-        inputs, st.params, lregcl=True, backend="pallas", sublanes=1,
-        interpret=True,
+        inputs, st.params, lregcl=True, backend="pallas", interpret=True,
     )
     for group, rgroup in ((out, ref_out), (dout, ref_dout), (adj, ref_adj)):
         for name, a, b in zip(group._fields, group, rgroup):
@@ -178,8 +217,8 @@ def test_run_tlad_pallas_mesh(mesh):
 
 
 def test_shard_map_blocked_pallas(mesh):
-    """Blocked-layout kernel SPMD over the block axis (axis=1) matches the
-    single-device blocked run."""
+    """Padded levels-major kernel SPMD over the column axis (axis=1)
+    matches the single-device run."""
     from functools import partial
 
     from cloudsc2jax.pallas.cloudsc2_kernel import cloudsc2_pallas
@@ -187,7 +226,7 @@ def test_shard_map_blocked_pallas(mesh):
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=17)
     # 8 blocks of 128 columns -> one block per device
-    blk = st.device_kernel_inputs(1024, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(1024, dtype=np.float32, block_multiple=128)
     fn = partial(cloudsc2_pallas, params=st.params, blocked=True,
                  interpret=True)
     ref = fn(blk)
@@ -253,9 +292,9 @@ def test_run_chunked_matches_single_shot(state):
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=13)
-    n1, s1 = run_chunked(st, 512, variant="nl", chunk=256, sublanes=1,
+    n1, s1 = run_chunked(st, 512, variant="nl", chunk=256,
                          interpret=True)
-    n2, s2 = run_chunked(st, 512, variant="nl", chunk=512, sublanes=1,
+    n2, s2 = run_chunked(st, 512, variant="nl", chunk=512,
                          interpret=True)
     assert n1 == n2 == 512
     np.testing.assert_allclose(s1, s2, rtol=1e-5)
@@ -270,17 +309,17 @@ def test_run_chunked_mesh_invariant(mesh):
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=13)
-    n0, s0 = run_chunked(st, 2048, variant="nl", chunk=2048, sublanes=1,
+    n0, s0 = run_chunked(st, 2048, variant="nl", chunk=2048,
                          interpret=True)
     # one mesh chunk vs TWO mesh chunks: chunks are rounded to whole
-    # per-device multiples (gc = bc*ndev = 1024 here), so chunk=1024 is
+    # per-device multiples (gc = BLOCK_COLS*ndev = 1024 here), so chunk=1024 is
     # a real two-chunk decomposition whose second step advances every
     # device's global block offset — the arithmetic a single-chunk run
     # never exercises (a sub-gc chunk would silently round UP to gc and
     # test nothing new)
-    n1, s1 = run_chunked(st, 2048, variant="nl", chunk=2048, sublanes=1,
+    n1, s1 = run_chunked(st, 2048, variant="nl", chunk=2048,
                          interpret=True, mesh=mesh)
-    n2, s2 = run_chunked(st, 2048, variant="nl", chunk=1024, sublanes=1,
+    n2, s2 = run_chunked(st, 2048, variant="nl", chunk=1024,
                          interpret=True, mesh=mesh)
     assert n0 == n1 == n2 == 2048
     np.testing.assert_allclose(s1, s0, rtol=1e-5)
@@ -294,9 +333,9 @@ def test_run_chunked_tlad_mesh_invariant(mesh):
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=9)
-    n0, s0 = run_chunked(st, 1024, variant="tlad", chunk=1024, sublanes=1,
+    n0, s0 = run_chunked(st, 1024, variant="tlad", chunk=1024,
                          interpret=True)
-    n1, s1 = run_chunked(st, 1024, variant="tlad", chunk=1024, sublanes=1,
+    n1, s1 = run_chunked(st, 1024, variant="tlad", chunk=1024,
                          interpret=True, mesh=mesh)
     assert n0 == n1 == 1024
     np.testing.assert_allclose(s1, s0, rtol=1e-4)
@@ -309,9 +348,9 @@ def test_run_chunked_tlad_matches_single_shot():
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=9)
-    n1, s1 = run_chunked(st, 512, variant="tlad", chunk=256, sublanes=1,
+    n1, s1 = run_chunked(st, 512, variant="tlad", chunk=256,
                          interpret=True)
-    n2, s2 = run_chunked(st, 512, variant="tlad", chunk=512, sublanes=1,
+    n2, s2 = run_chunked(st, 512, variant="tlad", chunk=512,
                          interpret=True)
     assert n1 == n2 == 512
     np.testing.assert_allclose(s1, s2, rtol=1e-4)

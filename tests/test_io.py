@@ -245,3 +245,56 @@ def test_reference_own_loader_reads_our_input_h5():
     )
     assert yrmcst.rg == pytest.approx(params.yomcst.rg)
     assert yrethf.r5alvcp == pytest.approx(params.yoethf.r5alvcp)
+
+
+@pytest.mark.parametrize("name", ["input", "reference", "reference_ldrain1d"])
+def test_npz_fixture_equals_h5(name):
+    """The committed .npz twins (tools/make_golden.py --npz-twins) hold
+    exactly the datasets of the .h5 fixtures, field by field."""
+    with cio.open_store(FIXTURES / f"{name}.h5") as h5, \
+            cio.open_store(FIXTURES / f"{name}.npz") as npz:
+        assert sorted(h5.keys()) == sorted(npz.keys())
+        for k in h5.keys():
+            a, b = np.asarray(h5[k]), np.asarray(npz[k])
+            assert a.dtype == b.dtype, k
+            np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_h5_path_without_h5py_says_so(monkeypatch):
+    """h5py is optional: an .h5 path without it is a clear error."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="needs h5py"):
+        cio.open_store(FIXTURES / "input.h5")
+
+
+def test_cli_runs_without_h5py(monkeypatch, capsys):
+    """The CLI's main path reads the bundled .npz fixtures: it runs and
+    validates with h5py hidden from the import path."""
+    import sys
+
+    from cloudsc2jax import cli
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    assert cli.main(["nl", "1", "100", "100"]) == 0
+    err = capsys.readouterr().err
+    assert "MaxRelErr-%" in err and "!!!!" not in err
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_f32_run_validates_against_the_f64_golden(state, backend):
+    """f32 runs face the one golden, the reference's NumPy port in f64, at
+    the CLI's f32 threshold; f32 rounding down the recurrence puts them
+    past the f64 run's 10 eps, which is why that threshold differs."""
+    from cloudsc2jax.cli import NL_THRESHOLD
+    from cloudsc2jax.drivers import run_nl
+
+    inputs = state.kernel_inputs(dtype=np.float32)
+    out = run_nl(inputs, state.params, backend=backend,
+                 interpret=backend == "pallas")
+    golden = FIXTURES / "reference.npz"
+    assert state.validate_device(out, inputs, golden,
+                                 threshold=NL_THRESHOLD["f32"], quiet=True)
+    assert not state.validate_device(out, inputs, golden,
+                                     threshold=NL_THRESHOLD["f64"], quiet=True)

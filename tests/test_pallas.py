@@ -1,8 +1,10 @@
 """Pallas fused kernel vs pure-JAX reference path (interpret mode on CPU).
 
-The Pallas kernel re-schedules the identical math for the TPU memory
-system (grid over column blocks × levels with a VMEM carry); this test
-pins its semantics to the lax.scan implementation in f32.
+The Pallas kernel re-schedules the identical math for the GPU (a grid over
+column blocks, the level loop inside the program, the carry in
+registers); these tests pin its semantics to the lax.scan implementation
+in f32, and check what surrounds it: padding, layouts, the choice of the
+Triton route, and that the zero-copy path adds no relayout.
 """
 
 import numpy as np
@@ -27,8 +29,8 @@ def test_pallas_matches_scan_f32(state, f32_inputs):
 
 
 def test_pallas_pads_arbitrary_column_counts(state):
-    # 100 columns -> one padded 8x128 block; padding must not leak into
-    # the first 100 columns
+    # 100 columns -> one padded 128-column block; padding must not leak
+    # into the first 100 columns
     small = state.kernel_inputs(dtype=np.float32)
     out_small = cloudsc2_pallas(small, state.params, interpret=True)
     assert np.asarray(out_small.pclc).shape == (100, 137)
@@ -46,31 +48,20 @@ def test_pallas_levels_major_matches(state, f32_inputs):
         np.testing.assert_array_equal(np.asarray(a).T, np.asarray(b))
 
 
-def test_pallas_resident_mode_matches(state, f32_inputs):
-    ref = cloudsc2(f32_inputs, state.params)
-    out = cloudsc2_pallas(
-        f32_inputs, state.params, interpret=True, mode="resident", sublanes=2
-    )
-    for name, a, b in zip(out._fields, out, ref):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-30)
-        assert np.abs(a - b).max() / scale < 5e-6, name
-
-
 def test_pallas_blocked_path_matches(state):
-    """The zero-relayout blocked path (inputs generated in kernel layout,
-    outputs returned blocked) must match the standard path exactly."""
-    import jax
+    """The zero-copy blocked path (inputs generated padded levels-major,
+    raw outputs returned) must match the standard path exactly."""
     import numpy as np
 
-    from cloudsc2jax.pallas.cloudsc2_kernel import unblock_outputs
+    from cloudsc2jax.pallas.cloudsc2_kernel import BLOCK_COLS, unblock_outputs
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
     ncol = 256
     std = st.device_kernel_inputs(ncol, dtype=np.float32)
-    blk = st.device_kernel_inputs(ncol, dtype=np.float32, blocked_sublanes=1)
-    ref = cloudsc2_pallas(std, st.params, sublanes=1, interpret=True)
+    blk = st.device_kernel_inputs(ncol, dtype=np.float32,
+                                  block_multiple=BLOCK_COLS)
+    ref = cloudsc2_pallas(std, st.params, interpret=True)
     bout = cloudsc2_pallas(blk, st.params, blocked=True, interpret=True)
     out = unblock_outputs(bout, st.params, ncol)
     for name, a, b in zip(ref._fields, out, ref):
@@ -87,7 +78,7 @@ def test_pallas_fuse_satur_matches(state):
     from cloudsc2jax.state import Cloudsc2State
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
     ref = cloudsc2_pallas(blk, st.params, blocked=True, interpret=True)
     fused = cloudsc2_pallas(
         blk, st.params, blocked=True, fuse_satur=True, interpret=True
@@ -119,64 +110,6 @@ def test_pallas_rejects_lphylin_false(state):
         cloudsc2_pallas_tl(inputs, inputs, params, interpret=True)
 
 
-def test_encoded_inputs_match_exact_kernel():
-    """int16 per-(field, level) affine storage encoding (DESIGN.md §8
-    study; measured perf-negative on v5e, kept for byte-bound hardware):
-    decode-in-kernel must reproduce the exact blocked kernel within the
-    study's error bound, well inside the on-chip validation budget."""
-    from functools import partial
-
-    import jax
-    import jax.numpy as jnp
-
-    from cloudsc2jax.pallas.cloudsc2_kernel import cloudsc2_pallas
-    from cloudsc2jax.pallas.experiments import (
-        cloudsc2_pallas_encoded,
-        encode_blocked_inputs,
-    )
-    from cloudsc2jax.state import Cloudsc2State
-
-    st = Cloudsc2State.synthetic(ngptot=100, nlev=17)
-    blk = st.device_kernel_inputs(1024, dtype=np.float32, blocked_sublanes=2)
-    exact = cloudsc2_pallas(blk, st.params, blocked=True, fuse_satur=True,
-                            interpret=True)
-    for keep in (("pq",), ("pq", "plu", "paph")):
-        enc = encode_blocked_inputs(blk, st.params, keep_f32=keep)
-        kept_f32 = sum(s.dtype == jnp.float32 for s in enc.streams)
-        assert kept_f32 == len(keep)
-        out = jax.jit(
-            partial(cloudsc2_pallas_encoded, params=st.params, interpret=True)
-        )(enc)
-        for name, a, b in zip(out._fields, out, exact):
-            a = np.asarray(a, np.float64)
-            b = np.asarray(b, np.float64)
-            denom = max(np.abs(b).sum(), 1e-30)
-            assert np.abs(a - b).sum() / denom < 5e-4, (keep, name)
-
-
-def test_window_probe_streams_distinct_windows(monkeypatch):
-    """The window-matched ceiling probe (tools/bw_probe.py, VERDICT r2
-    item 3) must move every (level, block) window — its in-probe
-    self-check would fail if the BlockSpec index map clamped against
-    the wrong dim (the (b, k) vs (k, b) ordering bug: consecutive grid
-    steps then repeat a block index and Mosaic elides the DMA, inflating
-    the reported ceiling).  Run it tiny, fwd and rev, in interpret."""
-    import importlib
-
-    bw_probe = importlib.import_module("tools.bw_probe")
-
-    for rev in ("0", "1"):
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_WINDOWS", "3x2")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_NLEV", "5")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_NB", "3")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_SUBLANES", "2")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_REPEATS", "1")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_INTERPRET", "1")
-        monkeypatch.setenv("CLOUDSC2_BW_PROBE_REV", rev)
-        rec = bw_probe.window_probe()
-        assert rec["mode"] == "windows" and rec["rev"] == (rev == "1")
-
-
 @pytest.mark.parametrize("seed,nlev,ncol,ldrain1d", [
     (7, 11, 97, False),     # odd ncol: tail padding inside one block
     (11, 21, 259, True),    # two padded blocks + the LDRAIN1D branch
@@ -199,3 +132,121 @@ def test_pallas_matches_scan_random_states(seed, nlev, ncol, ldrain1d):
         assert a.shape == b.shape == (ncol, b.shape[1])
         scale = max(np.abs(b).max(), 1e-30)
         assert np.abs(a - b).max() / scale < 5e-6, (seed, nlev, ncol, name)
+
+
+@pytest.mark.parametrize("ncol,block_cols", [
+    (97, 32),    # four blocks, the last one padded
+    (130, 64),   # a one-column tail block
+    (33, 8),     # many small blocks
+    (200, 128),  # the default block, padded
+])
+def test_column_blocks_match_scan(ncol, block_cols):
+    """The column grid at counts that are not block multiples: every
+    program runs its own level loop, padding replicates column 0 and is
+    sliced off again."""
+    from cloudsc2jax.state import Cloudsc2State
+
+    st = Cloudsc2State.synthetic(ngptot=ncol, nlev=9, seed=ncol)
+    inputs = st.kernel_inputs(dtype=np.float32)
+    ref = cloudsc2(inputs, st.params)
+    out = cloudsc2_pallas(inputs, st.params, block_cols=block_cols,
+                          interpret=True)
+    for name, a, b in zip(out._fields, out, ref):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, name
+        scale = max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() / scale < 5e-6, (ncol, block_cols, name)
+
+
+def test_layout_pads_with_column_zero(state):
+    """The padded levels-major layout: (nlev, ncol) rounded up to whole
+    blocks, the padding a replica of column 0."""
+    from cloudsc2jax.pallas.cloudsc2_kernel import _Layout
+
+    inputs = state.kernel_inputs(dtype=np.float32)  # 100 columns
+    lay = _Layout(inputs, state.params, 64, levels_major=False)
+    assert (lay.nlev, lay.ncol, lay.nb, lay.npad) == (137, 100, 2, 28)
+    pt = np.asarray(lay.arrs["pt"])
+    assert pt.shape == (137, 128)
+    np.testing.assert_array_equal(pt[:, :100], np.asarray(inputs.pt).T)
+    np.testing.assert_array_equal(
+        pt[:, 100:], np.repeat(pt[:, :1], 28, axis=1))
+    assert np.asarray(lay.arrs["paph"]).shape == (138, 128)
+    assert lay.ztrpaus.shape == lay.paphsfc.shape == (128,)
+
+
+def test_block_cols_must_be_power_of_two(state):
+    """Triton loads and stores power-of-two shapes only."""
+    inputs = state.kernel_inputs(dtype=np.float32)
+    with pytest.raises(ValueError, match="power of two"):
+        cloudsc2_pallas(inputs, state.params, block_cols=96, interpret=True)
+
+
+def test_blocked_rejects_unpadded_columns(state):
+    """blocked=True promises whole blocks; a ragged column count is
+    refused rather than padded behind the caller's back."""
+    inputs = state.kernel_inputs(dtype=np.float32, levels_major=True)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cloudsc2_pallas(inputs, state.params, blocked=True, interpret=True)
+
+
+def _lower_for_cuda(fn, *args):
+    """StableHLO of ``fn`` lowered for the GPU — the Triton lowering of
+    every kernel runs here, on the CPU, without a card."""
+    import jax
+
+    return jax.jit(fn).trace(*args).lower(
+        lowering_platforms=("cuda",)).as_text()
+
+
+@pytest.mark.parametrize("sweep", ["nl", "tl", "ad"])
+def test_kernels_lower_through_triton(state, sweep):
+    """Every kernel names the Triton route and lowers for the GPU (the
+    route a pallas_call that names none takes is Mosaic GPU)."""
+    from functools import partial
+
+    from cloudsc2jax.pallas.tlad_kernel import (
+        cloudsc2_pallas_ad,
+        cloudsc2_pallas_tl,
+    )
+
+    inputs = state.kernel_inputs(dtype=np.float32)
+    p = state.params
+    fn, args, ncalls = {
+        "nl": (partial(cloudsc2_pallas, params=p), (inputs,), 1),
+        "tl": (partial(cloudsc2_pallas_tl, params=p, lregcl=True),
+               (inputs, inputs), 1),
+        # forward checkpoint sweep + reverse sweep
+        "ad": (lambda i: cloudsc2_pallas_ad(
+            i, cloudsc2(i, p), p, lregcl=True), (inputs,), 2),
+    }[sweep]
+    text = _lower_for_cuda(fn, *args)
+    assert text.count("__gpu$xla.gpu.triton") == ncalls
+
+
+def test_blocked_path_adds_no_relayout(state):
+    """On the zero-copy path the kernel reads the generated levels-major
+    arrays as they are: no transpose or concatenate is lowered around the
+    call, and the only reshapes drop unit dimensions (bitcasts, such as
+    the surface-pressure row ``paph[nlev]``)."""
+    import re
+
+    from functools import partial
+
+    from cloudsc2jax.state import Cloudsc2State
+
+    st = Cloudsc2State.synthetic(ngptot=100, nlev=17)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
+    text = _lower_for_cuda(
+        partial(cloudsc2_pallas, params=st.params, blocked=True,
+                fuse_satur=True), blk)
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    for op in ("stablehlo.transpose", "stablehlo.concatenate"):
+        assert op not in text, op
+    reshapes = re.findall(
+        r"stablehlo\.reshape .*: \(tensor<([0-9x]*)x?f32>\) -> "
+        r"tensor<([0-9x]*)x?f32>", text)
+    for src, dst in reshapes:
+        dims = [[int(d) for d in t.split("x") if d and d != "1"]
+                for t in (src, dst)]
+        assert dims[0] == dims[1], (src, dst)

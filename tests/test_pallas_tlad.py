@@ -1,10 +1,10 @@
 """Fused Pallas TL/AD kernels vs jax.jvp/jax.vjp of the pure-JAX kernel
 (interpret mode on CPU, f32).
 
-The hand-scheduled kernels (tlad_kernel.py) re-schedule the identical
-differentiated math: the TL kernel fuses trajectory+tangent per level
-step (≙ cloudsc2tl.F90's dual statements), the AD pair runs a forward
-carry-checkpoint sweep plus a reversed-grid transpose sweep
+The kernels (tlad_kernel.py) re-schedule the identical differentiated
+math: the TL kernel fuses trajectory+tangent per level step
+(≙ cloudsc2tl.F90's dual statements), the AD pair runs a forward
+carry-checkpoint sweep plus a downward transpose sweep
 (≙ cloudsc2ad.F90:366-866 forward store / :934-1668 reverse loop).
 These tests pin both to the autodiff of the lax.scan kernel and check
 the adjoint identity end-to-end through the kernels themselves.
@@ -43,7 +43,7 @@ def test_tl_kernel_matches_jvp(state, f32_inputs, f32_increments, lregcl):
     )
     out, dout = cloudsc2_pallas_tl(
         f32_inputs, f32_increments, state.params,
-        lregcl=lregcl, sublanes=1, interpret=True,
+        lregcl=lregcl, interpret=True,
     )
     _assert_tree_close(out, out_ref, 5e-6, "primal")
     _assert_tree_close(dout, dout_ref, 5e-5, "tangent")
@@ -58,7 +58,7 @@ def test_ad_kernel_matches_vjp(state, f32_inputs, f32_increments, lregcl):
         f32_inputs, dout, state.params, lregcl=lregcl
     )
     out, adj = cloudsc2_pallas_ad(
-        f32_inputs, dout, state.params, lregcl=lregcl, sublanes=1,
+        f32_inputs, dout, state.params, lregcl=lregcl,
         interpret=True,
     )
     _assert_tree_close(out, out_ref, 5e-6, "primal")
@@ -76,10 +76,10 @@ def test_adjoint_identity_through_kernels(state, f32_inputs, f32_increments):
         psupsat=jnp.zeros_like(f32_increments.psupsat)
     )
     _, dout = cloudsc2_pallas_tl(
-        f32_inputs, di, state.params, lregcl=True, sublanes=1, interpret=True
+        f32_inputs, di, state.params, lregcl=True, interpret=True
     )
     _, adj = cloudsc2_pallas_ad(
-        f32_inputs, dout, state.params, lregcl=True, sublanes=1,
+        f32_inputs, dout, state.params, lregcl=True,
         interpret=True,
     )
     norm1 = sum(float(jnp.sum(jnp.asarray(y, jnp.float64) ** 2)) for y in dout)
@@ -95,12 +95,12 @@ def test_adjoint_identity_through_kernels(state, f32_inputs, f32_increments):
 
 def test_tl_kernel_levels_major(state, f32_inputs, f32_increments):
     ref_out, ref_dout = cloudsc2_pallas_tl(
-        f32_inputs, f32_increments, state.params, sublanes=1, interpret=True
+        f32_inputs, f32_increments, state.params, interpret=True
     )
     lm_in = type(f32_inputs)(*(np.ascontiguousarray(np.asarray(x).T) for x in f32_inputs))
     lm_di = type(f32_inputs)(*(np.ascontiguousarray(np.asarray(x).T) for x in f32_increments))
     lm_out, lm_dout = cloudsc2_pallas_tl(
-        lm_in, lm_di, state.params, sublanes=1, interpret=True,
+        lm_in, lm_di, state.params, interpret=True,
         levels_major=True,
     )
     for a, b in zip(lm_dout, ref_dout):
@@ -118,12 +118,12 @@ def test_blocked_tlad_matches_standard(state):
     params = st.params
     ncol = 256
     std = st.device_kernel_inputs(ncol, dtype=np.float32)
-    blk = st.device_kernel_inputs(ncol, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(ncol, dtype=np.float32, block_multiple=128)
     d_std = jax.tree.map(lambda x: 0.01 * x, std)
     d_blk = jax.tree.map(lambda x: 0.01 * x, blk)
 
     out_s, dout_s = cloudsc2_pallas_tl(
-        std, d_std, params, lregcl=True, sublanes=1, interpret=True
+        std, d_std, params, lregcl=True, interpret=True
     )
     out_b, dout_b = cloudsc2_pallas_tl(
         blk, d_blk, params, lregcl=True, blocked=True, interpret=True
@@ -132,7 +132,7 @@ def test_blocked_tlad_matches_standard(state):
     _assert_tree_close(dout_bu, dout_s, 1e-5, "blocked TL tangent")
 
     _, adj_s = cloudsc2_pallas_ad(
-        std, dout_s, params, lregcl=True, sublanes=1, interpret=True
+        std, dout_s, params, lregcl=True, interpret=True
     )
     _, adj_b = cloudsc2_pallas_ad(
         blk, fold_flux_seeds(dout_b, params), params, lregcl=True,
@@ -154,7 +154,7 @@ def test_checkpoint_reuse_adjoint_matches(state):
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
     params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
     di = jax.tree.map(lambda x: 0.01 * x, blk)
 
     out, dout, ckpts = cloudsc2_pallas_tl(
@@ -184,7 +184,7 @@ def test_write_primal_false_matches(state):
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
     params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
 
     out_w, dout_w, ck_w = cloudsc2_pallas_tl(
         blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
@@ -214,186 +214,6 @@ def test_write_primal_false_matches(state):
                                       err_msg=name)
 
 
-def test_encoded_tlad_unit_matches_exact(state):
-    """The int16-encoded fused work unit (VERDICT r2 item 2: the byte
-    diet applied to the byte-heavy TL+AD kernels) — dscale TL with
-    checkpoints + reverse-only adjoint over encoded streams:
-
-    * tangents/adjoints track the exact-f32 unit within the quantisation
-      budget (the encoded primal is ~1e-4 off, tools/encoding_study.py);
-    * the adjoint identity holds TIGHTLY through the encoded pair — TL
-      and AD are exact derivatives of the same quantised primal, so the
-      identity error is f32 rounding, not quantisation."""
-    from cloudsc2jax.drivers import DSCALE
-    from cloudsc2jax.pallas.experiments import encode_blocked_inputs
-    from cloudsc2jax.pallas.experiments import (
-        cloudsc2_pallas_ad_encoded,
-        cloudsc2_pallas_tl_encoded,
-    )
-    from cloudsc2jax.state import Cloudsc2State
-
-    st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
-    params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
-
-    out_x, dout_x, ck_x = cloudsc2_pallas_tl(
-        blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
-        dscale=DSCALE, interpret=True,
-    )
-    _, adj_x = cloudsc2_pallas_ad(
-        blk, dout_x, params, lregcl=True, blocked=True, checkpoints=ck_x,
-        fold_seeds=True, interpret=True,
-    )
-
-    enc = encode_blocked_inputs(blk, params, fuse_satur=False)
-    assert len(enc.streams) == 16  # 14 level fields (pqs kept) + plu + paph
-    out_e, dout_e, ck_e = cloudsc2_pallas_tl_encoded(
-        enc, params, dscale=DSCALE, lregcl=True, interpret=True,
-    )
-    _, adj_e = cloudsc2_pallas_ad_encoded(
-        enc, dout_e, params, checkpoints=ck_e, lregcl=True, fold_seeds=True,
-        interpret=True,
-    )
-
-    for what, got, want, tol in (
-        ("primal", out_e, out_x, 2e-3),
-        ("tangent", dout_e, dout_x, 5e-3),
-        ("adjoint", adj_e, adj_x, 5e-3),
-    ):
-        for name, a, b in zip(want._fields, got, want):
-            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-            denom = max(np.abs(b).sum(), 1e-30)
-            assert np.abs(a - b).sum() / denom < tol, (what, name)
-
-    # adjoint identity through the encoded pair: <Mdx,Mdx> = <dx,M^T M dx>
-    # with dx = DSCALE * decoded(x); the seeds were (1+L^2)-folded
-    # in-kernel so the rfln/sfln terms rescale in norm1 (fold_flux_seeds)
-    cst = params.yomcst
-    w = {"rfln": 1.0 + cst.rlvtt**2, "sfln": 1.0 + cst.rlstt**2}
-    n1 = sum(
-        w.get(name, 1.0) * float(np.sum(np.asarray(v, np.float64) ** 2))
-        for name, v in zip(dout_e._fields, dout_e)
-    )
-    dec = _decode_streams(enc)
-    n2 = sum(
-        float(np.sum(DSCALE * np.asarray(x, np.float64)
-                     * np.asarray(a, np.float64)))
-        for x, a in zip(dec, adj_e)
-    )
-    assert abs(n1 - n2) / abs(n2) < 1e-5, (n1, n2)
-
-
-def _decode_streams(enc):
-    """Host-side decode of EncodedInputs back to the 16-field
-    Cloudsc2Inputs order (paph twice collapsed to once)."""
-    from cloudsc2jax.pallas.cloudsc2_kernel import _LEVEL_FIELDS
-
-    out = {}
-    names = list(_LEVEL_FIELDS) + ["plu", "paph"]
-    for i, name in enumerate(names):
-        s = np.asarray(enc.streams[i])
-        if s.dtype == np.float32:
-            out[name] = np.float64(s)
-        else:
-            tab = np.asarray(enc.enc[i], np.float64)  # (nlev+1, 2)
-            sc = tab[: s.shape[0], 0][:, None, None, None]
-            off = tab[: s.shape[0], 1][:, None, None, None]
-            out[name] = np.float64(s) * sc + off
-    from cloudsc2jax.physics.cloudsc2 import Cloudsc2Inputs
-
-    return Cloudsc2Inputs(**out)
-
-
-@pytest.mark.parametrize("chunk", [2, 3])
-def test_chunked_levels_match_single(state, chunk):
-    """C-level chunked grid steps (``chunk_levels``) reproduce the
-    single-level schedule exactly — same per-level math, fewer/larger
-    DMA windows; the partial final chunk (nlev not divisible by C)
-    exercises the carry masking and Pallas OOB write dropping."""
-    from cloudsc2jax.pallas.tlad_kernel import fold_flux_seeds
-    from cloudsc2jax.state import Cloudsc2State
-
-    st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
-    params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
-
-    def close(got, want, what, rtol=1e-5):
-        # same math, different compiled programs: XLA:CPU's FMA
-        # contraction differs at the last ulp between the two bodies
-        # (as in test_dist's decomposition-invariance caveat)
-        for i, (a, b) in enumerate(zip(jax.tree.leaves(got),
-                                       jax.tree.leaves(want))):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(np.abs(b).max(), 1e-30)
-            assert np.abs(a - b).max() / scale < rtol, (what, i)
-
-    out1, dout1, ck1 = cloudsc2_pallas_tl(
-        blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
-        dscale=0.01, interpret=True,
-    )
-    outC, doutC, ckC = cloudsc2_pallas_tl(
-        blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
-        dscale=0.01, chunk_levels=chunk, interpret=True,
-    )
-    close((outC, doutC, ckC), (out1, dout1, ck1), "tl")
-
-    # AD variants fed IDENTICAL seeds + checkpoints (isolates the reverse
-    # kernels; comparing through each variant's own TL output would just
-    # re-measure the TL ulp noise amplified by the (1+L²) seed fold)
-    seeds = fold_flux_seeds(dout1, params)
-    _, adj1 = cloudsc2_pallas_ad(
-        blk, seeds, params, lregcl=True, blocked=True, checkpoints=ck1,
-        interpret=True,
-    )
-    _, adjC = cloudsc2_pallas_ad(
-        blk, seeds, params, lregcl=True, blocked=True, checkpoints=ck1,
-        chunk_levels=chunk, interpret=True,
-    )
-    close(adjC, adj1, "ckpt-reuse")
-    # internal-forward-sweep path too (no external checkpoints)
-    _, adj1f = cloudsc2_pallas_ad(
-        blk, seeds, params, lregcl=True, blocked=True, interpret=True
-    )
-    _, adjCf = cloudsc2_pallas_ad(
-        blk, seeds, params, lregcl=True, blocked=True,
-        chunk_levels=chunk, interpret=True,
-    )
-    close(adjCf, adj1f, "internal-fwd")
-
-
-def test_fused_single_kernel_matches_two_kernel(state):
-    """The single-call fused TL+AD work unit (primal carry checkpoints
-    AND the 8 tangent output streams resident in VMEM scratch, pinned
-    output windows) reproduces the two-kernel dscale work unit on every
-    contract leaf."""
-    from cloudsc2jax.pallas.experiments import cloudsc2_pallas_tlad_fused
-    from cloudsc2jax.state import Cloudsc2State
-
-    st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
-    params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
-
-    out1, dout1, ck1 = cloudsc2_pallas_tl(
-        blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
-        dscale=0.01, interpret=True,
-    )
-    _, adj1 = cloudsc2_pallas_ad(
-        blk, dout1, params, lregcl=True, blocked=True, checkpoints=ck1,
-        fold_seeds=True, interpret=True,
-    )
-    outF, doutF, adjF = cloudsc2_pallas_tlad_fused(
-        blk, params, lregcl=True, interpret=True
-    )
-    # the fused kernel runs its OWN TL pass, so last-ulp FMA-contraction
-    # differences between the two compiled bodies propagate through the
-    # (1+L²) seed fold and the reverse sweep (~1e-5 on the plu adjoint)
-    for i, (a, b) in enumerate(zip(jax.tree.leaves((outF, doutF, adjF)),
-                                   jax.tree.leaves((out1, dout1, adj1)))):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(b).max(), 1e-30)
-        assert np.abs(a - b).max() / scale < 1e-4, i
-
-
 def test_fold_seeds_in_kernel_matches_external(state):
     """The production work unit's in-kernel flux-seed fold
     (``fold_seeds=True``, drivers._tlad_step) equals the external
@@ -404,7 +224,7 @@ def test_fold_seeds_in_kernel_matches_external(state):
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
     params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
     di = jax.tree.map(lambda x: 0.01 * x, blk)
 
     _, dout = cloudsc2_pallas_tl(
@@ -437,7 +257,7 @@ def test_tlad_kernels_ldrain1d(state, f32_inputs, f32_increments, lregcl):
     )
     out, dout = cloudsc2_pallas_tl(
         f32_inputs, f32_increments, state.params, lregcl=lregcl,
-        ldrain1d=True, sublanes=1, interpret=True,
+        ldrain1d=True, interpret=True,
     )
     _assert_tree_close(out, out_ref, 5e-6, "primal")
     _assert_tree_close(dout, dout_ref, 5e-5, "tangent")
@@ -447,7 +267,7 @@ def test_tlad_kernels_ldrain1d(state, f32_inputs, f32_increments, lregcl):
     )
     _, adj = cloudsc2_pallas_ad(
         f32_inputs, dout_ref, state.params, lregcl=lregcl, ldrain1d=True,
-        sublanes=1, interpret=True,
+        interpret=True,
     )
     for name, a, b in zip(adj_ref._fields, adj, adj_ref):
         a, b = np.asarray(a), np.asarray(b)
@@ -463,7 +283,7 @@ def test_dscale_matches_explicit_increments(state):
 
     st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
     params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
+    blk = st.device_kernel_inputs(256, dtype=np.float32, block_multiple=128)
     di = jax.tree.map(lambda x: np.float32(0.01) * x, blk)
     out_a, dout_a = cloudsc2_pallas_tl(
         blk, di, params, lregcl=True, blocked=True, interpret=True
@@ -479,63 +299,6 @@ def test_dscale_matches_explicit_increments(state):
     with pytest.raises(ValueError):
         cloudsc2_pallas_tl(blk, di, params, blocked=True, dscale=0.01,
                            interpret=True)
-
-
-def test_inplace_scatter_matches_xla_assembly(state):
-    """The in-kernel shift-scatter reverse schedule (inplace_scatter,
-    the production default: d_plu/d_paph accumulated onto their source
-    buffers inside the kernel via shifted output maps + a flush step,
-    ≙ cloudsc2ad.F90:1721-1740's in-place accumulation) must be
-    BIT-identical to the round-2..4 convention (17 shifted-view streams
-    + XLA concatenate/add assembly) — same per-level vjp math, only the
-    store schedule differs.  Covers blocked and standard layouts, the
-    checkpoint-reuse reverse-only path, and the in-kernel seed fold."""
-    from cloudsc2jax.state import Cloudsc2State
-
-    st = Cloudsc2State.synthetic(ngptot=100, nlev=23)
-    params = st.params
-    blk = st.device_kernel_inputs(256, dtype=np.float32, blocked_sublanes=1)
-    _, dout, ck = cloudsc2_pallas_tl(
-        blk, None, params, lregcl=True, blocked=True, save_checkpoints=True,
-        dscale=0.01, interpret=True,
-    )
-    for kwargs in (
-        dict(checkpoints=ck, fold_seeds=True),   # the production unit
-        dict(),                                   # internal forward sweep
-    ):
-        _, adj_x = cloudsc2_pallas_ad(
-            blk, dout, params, lregcl=True, blocked=True, interpret=True,
-            inplace_scatter=False, **kwargs,
-        )
-        _, adj_k = cloudsc2_pallas_ad(
-            blk, dout, params, lregcl=True, blocked=True, interpret=True,
-            inplace_scatter=True, **kwargs,
-        )
-        for name, a, b in zip(adj_x._fields, adj_k, adj_x):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                          err_msg=name)
-
-    # standard (ncol, nlev) layout path too
-    std = st.device_kernel_inputs(256, dtype=np.float32)
-    d_std = jax.tree.map(lambda x: 0.01 * x, std)
-    _, dout_s = cloudsc2_pallas_tl(
-        std, d_std, params, lregcl=True, sublanes=1, interpret=True
-    )
-    _, adj_xs = cloudsc2_pallas_ad(
-        std, dout_s, params, lregcl=True, sublanes=1, interpret=True,
-        inplace_scatter=False,
-    )
-    _, adj_ks = cloudsc2_pallas_ad(
-        std, dout_s, params, lregcl=True, sublanes=1, interpret=True,
-        inplace_scatter=True,
-    )
-    for name, a, b in zip(adj_xs._fields, adj_ks, adj_xs):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=name)
-
-    with pytest.raises(ValueError, match="inplace_scatter"):
-        cloudsc2_pallas_ad(blk, dout, params, blocked=True, chunk_levels=2,
-                           inplace_scatter=True, interpret=True)
 
 
 def test_run_tlad_rejects_unhonorable_write_primal(state):
@@ -566,16 +329,58 @@ def test_tlad_kernels_match_autodiff_random_states(seed, nlev, ncol):
 
     out_ref, dout_ref = cloudsc2_tl(inputs, di, st.params, lregcl=True)
     out, dout = cloudsc2_pallas_tl(
-        inputs, di, st.params, lregcl=True, sublanes=1, interpret=True
+        inputs, di, st.params, lregcl=True, interpret=True
     )
     _assert_tree_close(out, out_ref, 5e-6, ("primal", seed))
     _assert_tree_close(dout, dout_ref, 5e-5, ("tangent", seed))
 
     _, adj_ref = cloudsc2_ad(inputs, dout_ref, st.params, lregcl=True)
     _, adj = cloudsc2_pallas_ad(
-        inputs, dout_ref, st.params, lregcl=True, sublanes=1, interpret=True
+        inputs, dout_ref, st.params, lregcl=True, interpret=True
     )
     for name, a, b in zip(adj_ref._fields, adj, adj_ref):
         a, b = np.asarray(a), np.asarray(b)
         scale = max(np.abs(b).max(), 1e-30)
         assert np.abs(a - b).max() / scale < 1e-4, (seed, name)
+
+
+@pytest.mark.parametrize("ncol,block_cols", [(97, 32), (64, 64)])
+def test_reverse_kernel_shift_rows_match_vjp(ncol, block_cols):
+    """The reverse kernel writes the adjoints of the shifted reads in
+    place: d_plu[k+1] from the plu(k+1) read, d_paph[k+1] = hi(k) +
+    lo(k+1) with lo carried one level, row 0 of both, and the surface row
+    d_paph[nlev] that also collects every level's surface-pressure read.
+    Each row against jax.vjp of the scan, over several column blocks."""
+    from cloudsc2jax.state import Cloudsc2State
+
+    st = Cloudsc2State.synthetic(ngptot=ncol, nlev=11, seed=ncol)
+    inputs = st.kernel_inputs(dtype=np.float32)
+    di = jax.tree.map(lambda x: 0.01 * jnp.asarray(x), inputs)
+    _, seeds = cloudsc2_tl(inputs, di, st.params, lregcl=True)
+    _, adj_ref = cloudsc2_ad(inputs, seeds, st.params, lregcl=True)
+    _, adj = cloudsc2_pallas_ad(inputs, seeds, st.params, lregcl=True,
+                                block_cols=block_cols, interpret=True)
+    plu, plu_ref = np.asarray(adj.plu), np.asarray(adj_ref.plu)
+    paph, paph_ref = np.asarray(adj.paph), np.asarray(adj_ref.paph)
+    assert paph.shape == paph_ref.shape == (ncol, 12)
+    np.testing.assert_array_equal(plu[:, 0], 0.0)  # never read as k+1
+    for name, a, b in (("plu", plu, plu_ref),
+                       ("paph rows 0..nlev-1", paph[:, :-1], paph_ref[:, :-1]),
+                       ("paph surface row", paph[:, -1:], paph_ref[:, -1:])):
+        scale = max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() / scale < 1e-4, name
+
+
+@pytest.mark.parametrize("ncol,block_cols", [(45, 16), (130, 64)])
+def test_tl_kernel_column_blocks_match_jvp(ncol, block_cols):
+    """The TL kernel over several column blocks with a padded tail."""
+    from cloudsc2jax.state import Cloudsc2State
+
+    st = Cloudsc2State.synthetic(ngptot=ncol, nlev=9, seed=ncol)
+    inputs = st.kernel_inputs(dtype=np.float32)
+    di = jax.tree.map(lambda x: 0.01 * jnp.asarray(x), inputs)
+    out_ref, dout_ref = cloudsc2_tl(inputs, di, st.params, lregcl=True)
+    out, dout = cloudsc2_pallas_tl(inputs, di, st.params, lregcl=True,
+                                   block_cols=block_cols, interpret=True)
+    _assert_tree_close(out, out_ref, 5e-6, "primal")
+    _assert_tree_close(dout, dout_ref, 5e-5, "tangent")

@@ -11,13 +11,17 @@ which holds outputs for an input state we don't have).  This tool:
    loaded from the read-only reference tree at generation time only —
    no reference code is copied into this repository) on that state;
 3. writes the resulting outputs as ``tests/fixtures/reference.h5`` in the
-   reference golden-file schema.
+   reference golden-file schema;
+4. writes an ``.npz`` twin of every ``.h5`` it writes — the same datasets
+   under the same names (``io.write_store``), so the CLI and the tests
+   read the fixtures without h5py.
 
 The committed fixtures are pure *data*.  The framework's golden regression
 test (tests/test_nl_golden.py) then validates the JAX kernel against an
 independently-written implementation of the same mathematics.
 
 Usage: python tools/make_golden.py [--nlon 100] [--nlev 137]
+       python tools/make_golden.py --npz-twins   # twins of the committed .h5
 """
 
 import argparse
@@ -139,6 +143,16 @@ def run_reference_port(fields, params, ldrain1d: bool = False):
     }
 
 
+def write_npz_twin(h5_path) -> pathlib.Path:
+    """Copy every dataset of an ``.h5`` archive into ``<stem>.npz``."""
+    h5_path = pathlib.Path(h5_path)
+    with cio.open_store(h5_path) as f:
+        datasets = {k: np.asarray(f[k]) for k in f.keys()}
+    twin = h5_path.with_suffix(".npz")
+    cio.write_store(twin, datasets)
+    return twin
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nlon", type=int, default=100)
@@ -148,10 +162,17 @@ def main():
                     help="generate goldens with LDRAIN1D=.TRUE. (activates "
                     "the clear-sky precip-evaporation branch); writes "
                     "reference_ldrain1d.h5 and reuses the existing input.h5")
+    ap.add_argument("--npz-twins", action="store_true",
+                    help="only write the .npz twins of the committed .h5 "
+                    "fixtures")
     args = ap.parse_args()
 
     fixtures = REPO / "tests" / "fixtures"
     fixtures.mkdir(parents=True, exist_ok=True)
+    if args.npz_twins:
+        for h5 in sorted(fixtures.glob("*.h5")):
+            print(f"wrote {write_npz_twin(h5)}")
+        return
 
     if args.ldrain1d and (fixtures / "input.h5").exists():
         # alternate goldens must correspond to the COMMITTED input state,
@@ -165,14 +186,15 @@ def main():
         )
         if not args.ldrain1d:
             cio.write_input_h5(fixtures / "input.h5", fields, params)
-            print(f"wrote {fixtures/'input.h5'}")
+            print(f"wrote {fixtures/'input.h5'} and "
+                  f"{write_npz_twin(fixtures / 'input.h5')}")
 
     t0 = time.time()
     outputs = run_reference_port(fields, params, ldrain1d=args.ldrain1d)
     print(f"reference numpy port ran in {time.time()-t0:.1f}s")
     name = "reference_ldrain1d.h5" if args.ldrain1d else "reference.h5"
     cio.write_reference_h5(fixtures / name, outputs)
-    print(f"wrote {fixtures/name}")
+    print(f"wrote {fixtures/name} and {write_npz_twin(fixtures / name)}")
 
 
 if __name__ == "__main__":
